@@ -4,7 +4,7 @@ Written from the algorithm definitions in SURVEY.md / the reference math
 (NOT imported from the reference — pywt is unavailable in this environment,
 so the Haar step is the standard orthonormal butterfly, which is exactly what
 pywt's 'haar' computes).  Used only by tests as the golden implementation the
-TPU codecs must match, and by bench.py as the measured CPU baseline.
+device codecs must match, and by bench.py as the measured CPU baseline.
 """
 
 from __future__ import annotations

@@ -227,20 +227,6 @@ class TestMp4vInterFrameChannel:
         assert report["is_successful"], report["segment_preservation_rate"]
         assert report["reencoded_avg_frequency"] >= 0.75
 
-    def test_dtcwtkey_fast_dots_survives_mp4v(self, mp4v_source, tmp_path):
-        """fast_dots (single-bf16-pass matmuls) must clear the same 75%
-        durability bar through the inter-frame channel — the criterion for
-        making it the DT-CWT default on chip."""
-        from vfp_tpu.wm.dtcwt_codecs import DtcwtKey
-        from vfp_tpu.workflows.durability import run_durability_corr
-
-        report = run_durability_corr(
-            mp4v_source, tmp_path / "dur", segment_duration=1.0,
-            container="mp4", batch_size=8, codec=DtcwtKey(fast_dots=True),
-        )
-        assert report["is_successful"], report["segment_preservation_rate"]
-        assert report["reencoded_avg_frequency"] >= 0.75
-
     def test_dtcwtimg_image_recovery_after_mp4v(self, tmp_path):
         """BlockShuffler image watermark recovered from the mp4v channel with
         frame-averaged planes; agreement holds the clean-roundtrip ceiling

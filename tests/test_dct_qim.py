@@ -93,176 +93,3 @@ class TestCodec:
         bits = np.asarray(codec.extract_frames(jnp.asarray(marked[None])))[0]
         out = DeShuffler(key=0).set_shape(PAYLOAD.shape).degenerate(bits)
         np.testing.assert_array_equal(out, PAYLOAD)
-
-
-class TestFusedDctQim:
-    """Single-launch fused DCT-QIM kernels (interpret mode; compiled on TPU)."""
-
-    def test_mark_pixel_exact_and_extract(self, rng):
-        import jax.numpy as jnp
-        from vfp_tpu.kernels.fused_dct_qim import (
-            fused_dct_qim_extract,
-            fused_dct_qim_mark,
-            pick_chunk8,
-        )
-
-        assert pick_chunk8(1920) == 480
-        codec = DctQim(backend="xla")
-        frames = natural_frames(rng, b=2, h=64, w=128)
-        nbh, nbw = 8, 16
-        wm = np.asarray(
-            Shuffler(key=0).generate_wm(PAYLOAD, codec.wm_capacity((64, 128, 3)))
-        ).reshape(-1)
-        wm2d = jnp.asarray(wm[: nbh * nbw].reshape(nbh, nbw), jnp.float32)
-        got = np.asarray(
-            fused_dct_qim_mark(jnp.asarray(frames.transpose(0, 3, 1, 2)), wm2d, 20.0,
-                               interpret=True)
-        ).transpose(0, 2, 3, 1)
-        want = np.asarray(codec.mark_frames(jnp.asarray(frames), jnp.asarray(wm, jnp.float32)))
-        # delta-identity epilogue: +-1 only where the multi-op roundtrip's
-        # epsilon (< 0.07) straddles a .5 boundary; bits must stay exact
-        diff = np.abs(got.astype(int) - want.astype(int))
-        assert diff.max() <= 1 and (diff == 0).mean() > 0.98
-        bits = np.asarray(
-            fused_dct_qim_extract(jnp.asarray(got.transpose(0, 3, 1, 2)), 20.0,
-                                  interpret=True)
-        ).reshape(2, -1)
-        wantbits = np.asarray(codec.extract_frames(jnp.asarray(got)))[:, : nbh * nbw]
-        np.testing.assert_array_equal(bits, wantbits)
-        deg = DeShuffler(key=0, threshold="fixed").set_shape(PAYLOAD.shape)
-        cap = codec.wm_capacity((64, 128, 3))[1]
-        padded = np.pad(bits, ((0, 0), (0, cap - nbh * nbw)))
-        rec = np.asarray(deg.degenerate_batch(jnp.asarray(padded)))
-        for p in rec:
-            np.testing.assert_array_equal(p, PAYLOAD)
-
-    def test_padded_width_pixel_exact(self, rng):
-        """W=856 (prime block count, the round-1 VMEM OOM shape): the
-        zero-pad path must stay within the +-1 epilogue tolerance — all-zero
-        padded blocks make the perceptual masks 0/0 = NaN, which the kernel
-        must contain (a NaN leak would blow the max-diff bound, not just
-        flip borderline pixels)."""
-        import jax.numpy as jnp
-        from vfp_tpu.kernels.fused_dct_qim import (
-            MAX_CHUNK, MAX_CHUNKS, fused_dct_qim_extract, fused_dct_qim_mark,
-            padded_width8, pick_chunk8)
-
-        for w in range(640, 3841, 8):
-            wp = padded_width8(w)
-            chunk = pick_chunk8(wp)
-            assert wp is not None and chunk <= MAX_CHUNK and wp // chunk <= MAX_CHUNKS, w
-        codec = DctQim(backend="xla")
-        frames = natural_frames(rng, b=1, h=32, w=856)
-        nbh, nbw = 4, 107
-        wm = np.asarray(
-            Shuffler(key=0).generate_wm(PAYLOAD, codec.wm_capacity((32, 856, 3)))
-        ).reshape(-1)
-        wm2d = jnp.asarray(wm[: nbh * nbw].reshape(nbh, nbw), jnp.float32)
-        got = np.asarray(
-            fused_dct_qim_mark(jnp.asarray(frames.transpose(0, 3, 1, 2)), wm2d, 20.0,
-                               interpret=True)
-        ).transpose(0, 2, 3, 1)
-        want = np.asarray(codec.mark_frames(jnp.asarray(frames), jnp.asarray(wm, jnp.float32)))
-        diff = np.abs(got.astype(int) - want.astype(int))
-        assert diff.max() <= 1 and (diff == 0).mean() > 0.98  # see note above
-        bits = np.asarray(
-            fused_dct_qim_extract(jnp.asarray(got.transpose(0, 3, 1, 2)), 20.0,
-                                  interpret=True))
-        assert bits.shape == (1, nbh, nbw)
-        wantbits = np.asarray(codec.extract_frames(jnp.asarray(got)))[:, : nbh * nbw]
-        np.testing.assert_array_equal(bits.reshape(1, -1), wantbits)
-
-
-class TestFastDctQim:
-    """fast_dots (single-bf16-pass kernel matmuls, kernels/fused_dct_qim._dot):
-    interpret mode simulates the bf16 operand rounding, so these pin the real
-    numerics.  Decision safety: masks are recomputed identically on both
-    sides (Y is never modified by the embed), and the bf16 noise on the U
-    coefficient (~0.5 units) sits far below the decode margin step/2 >= 10 at
-    the default alpha — payload recovery must hold in every mixed pairing."""
-
-    def _mark(self, frames, wm2d, fast):
-        from vfp_tpu.kernels.fused_dct_qim import fused_dct_qim_mark
-
-        return np.asarray(fused_dct_qim_mark(
-            jnp.asarray(frames.transpose(0, 3, 1, 2)), wm2d, 20.0,
-            interpret=True, fast=fast)).transpose(0, 2, 3, 1)
-
-    def _bits(self, marked, fast):
-        from vfp_tpu.kernels.fused_dct_qim import fused_dct_qim_extract
-
-        return np.asarray(fused_dct_qim_extract(
-            jnp.asarray(marked.transpose(0, 3, 1, 2)), 20.0,
-            interpret=True, fast=fast))
-
-    def _payloads(self, bits, cap):
-        b = bits.reshape(len(bits), -1)
-        deg = DeShuffler(key=0, threshold="fixed").set_shape(PAYLOAD.shape)
-        padded = np.pad(b, ((0, 0), (0, cap - b.shape[1])))
-        return np.asarray(deg.degenerate_batch(jnp.asarray(padded)))
-
-    def test_decisions_and_cross_compat(self, rng):
-        codec = DctQim(backend="xla")
-        h, w = 64, 128
-        frames = natural_frames(rng, b=2, h=h, w=w)
-        nbh, nbw = h // 8, w // 8
-        cap = codec.wm_capacity((h, w, 3))
-        wm = np.asarray(Shuffler(key=0).generate_wm(PAYLOAD, cap)).reshape(-1)
-        wm2d = jnp.asarray(wm[: nbh * nbw].reshape(nbh, nbw), jnp.float32)
-
-        exact = self._mark(frames, wm2d, fast=False)
-        fastm = self._mark(frames, wm2d, fast=True)
-        # the bf16 delta stays a small perturbation of the exact delta
-        diff = np.abs(fastm.astype(int) - exact.astype(int))
-        assert diff.max() <= 2 and (diff == 0).mean() > 0.9, (
-            diff.max(), (diff == 0).mean())
-
-        # every (marker, extractor) pairing recovers the payload via the
-        # spread redundancy, and per-block agreement stays high
-        ref_bits = self._bits(exact, fast=False)
-        for marked in (exact, fastm):
-            for fast in (False, True):
-                bits = self._bits(marked, fast)
-                assert (bits == ref_bits).mean() > 0.97, (
-                    marked is fastm, fast, (bits == ref_bits).mean())
-                for p in self._payloads(bits, cap[1]):
-                    np.testing.assert_array_equal(p, PAYLOAD)
-
-    def test_fast_matches_exact_through_jpeg95(self, rng):
-        """Through a real lossy channel the fast path must behave like the
-        exact one: full payload recovery at alpha=30 / JPEG-95 and
-        near-identical raw bit planes.  (Harsher settings fail BOTH paths
-        identically on these tiny noise-heavy frames — measured 3/16
-        payload-bit errors each at alpha 20 / q90, 5/16 at alpha 30 / q90 —
-        16x redundancy here vs ~4000x at 1080p; the errors being equal is
-        itself the equivalence evidence.)"""
-        from vfp_tpu.kernels.fused_dct_qim import (fused_dct_qim_extract,
-                                                   fused_dct_qim_mark)
-
-        codec = DctQim(backend="xla")
-        h, w = 64, 128
-        alpha = 30.0
-        frames = natural_frames(rng, b=2, h=h, w=w)
-        nbh, nbw = h // 8, w // 8
-        cap = codec.wm_capacity((h, w, 3))
-        wm = np.asarray(Shuffler(key=0).generate_wm(PAYLOAD, cap)).reshape(-1)
-        wm2d = jnp.asarray(wm[: nbh * nbw].reshape(nbh, nbw), jnp.float32)
-        deg = DeShuffler(key=0, threshold="fixed").set_shape(PAYLOAD.shape)
-        planes = jnp.asarray(frames.transpose(0, 3, 1, 2))
-        bitsets = {}
-        for fast in (False, True):
-            m = np.asarray(fused_dct_qim_mark(
-                planes, wm2d, alpha, interpret=True, fast=fast)
-            ).transpose(0, 2, 3, 1)
-            att = np.stack([
-                cv2.imdecode(cv2.imencode(".jpg", f,
-                                          [cv2.IMWRITE_JPEG_QUALITY, 95])[1], 1)
-                for f in m
-            ])
-            bits = np.asarray(fused_dct_qim_extract(
-                jnp.asarray(att.transpose(0, 3, 1, 2)), alpha,
-                interpret=True, fast=fast)).reshape(2, -1)
-            bitsets[fast] = bits
-            for p in np.asarray(deg.degenerate_batch(jnp.asarray(bits))):
-                np.testing.assert_array_equal(p, PAYLOAD)
-        assert (bitsets[True] == bitsets[False]).mean() > 0.97

@@ -169,48 +169,55 @@ class TestDtcwtRobustness:
         assert ok == 2, ok
 
 
+SHAPES_SYN = [(64, 128), (66, 150), (17, 32)]
+
+
 class TestLowpassOnlySynthesis:
-    """Delta-pyramid embed path: lowpass-only synthesis kernels must equal
-    the full kernels fed zero highpasses (the linearity the embed relies on)."""
+    """Delta-pyramid embed path: the lowpass-only synthesis methods must
+    equal the full synthesis fed zero highpasses (the linearity the embed
+    relies on), in the XLA path."""
 
-    def test_kernels_match_full_with_zero_highpasses(self, rng):
-        from vfp_tpu.kernels.dtcwt_synthesis import (
-            dtcwt_legall_synthesis, dtcwt_legall_synthesis_ll,
-            dtcwt_qshift_synthesis, dtcwt_qshift_synthesis_ll)
-
-        for h, w in ((64, 128), (66, 150)):
-            ll4 = jnp.asarray(rng.rand(2, 4, h, w), jnp.float32)
-            full = jnp.concatenate([ll4, jnp.zeros((2, 12, h, w), jnp.float32)], axis=1)
-            np.testing.assert_allclose(
-                np.asarray(dtcwt_qshift_synthesis_ll(ll4, interpret=True)),
-                np.asarray(dtcwt_qshift_synthesis(full, interpret=True)), atol=1e-5)
-            np.testing.assert_allclose(
-                np.asarray(dtcwt_legall_synthesis_ll(ll4, interpret=True)),
-                np.asarray(dtcwt_legall_synthesis(full, interpret=True)), atol=1e-5)
-
-    def test_xla_methods_match_kernels(self, rng):
-        from vfp_tpu.ops.dtcwt import Transform2d
-
-    # XLA fallback (small shapes route off-kernel) vs interpret kernels
+    @pytest.mark.parametrize("shape", SHAPES_SYN)
+    def test_lowpass_only_matches_full_with_zero_highpasses(self, rng, shape):
+        h, w = shape
         t = Transform2d()
-        ll4 = jnp.asarray(rng.rand(2, 4, 64, 128), jnp.float32)
-        from vfp_tpu.kernels.dtcwt_synthesis import (
-            dtcwt_legall_synthesis_ll, dtcwt_qshift_synthesis_ll)
+        ll4 = jnp.asarray(rng.rand(2, 4, h, w), jnp.float32)
+        full = jnp.concatenate([ll4, jnp.zeros((2, 12, h, w), jnp.float32)], axis=1)
+        np.testing.assert_allclose(np.asarray(t.synthesis_qshift_ll(ll4)),
+                                   np.asarray(t.synthesis_qshift(full)), atol=1e-5)
+        np.testing.assert_allclose(np.asarray(t.synthesis_legall_ll(ll4)),
+                                   np.asarray(t.synthesis_legall(full)), atol=1e-5)
 
-        want_q = np.asarray(dtcwt_qshift_synthesis_ll(ll4, interpret=True))
-        want_l = np.asarray(dtcwt_legall_synthesis_ll(ll4, interpret=True))
-        tiny = Transform2d(backend="xla")
-        np.testing.assert_allclose(np.asarray(tiny.synthesis_qshift_ll(ll4)),
-                                   want_q, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(tiny.synthesis_legall_ll(ll4)),
-                                   want_l, atol=1e-5)
+    @pytest.mark.parametrize("shape", [(64, 128), (30, 42)])
+    def test_lowpass_only_equals_inverse_of_lowpass_pyramid(self, rng, shape):
+        """synthesis_legall_ll == the full 1-level inverse of a pyramid
+        whose highpasses are all zero."""
+        h, w = shape
+        t = Transform2d()
+        ll4 = jnp.asarray(rng.rand(4, h, w), jnp.float32)
+        low = jnp.zeros((2 * h, 2 * w), jnp.float32)
+        for ci, (rt, ct) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            low = low.at[rt::2, ct::2].set(ll4[ci])
+        pyr = Pyramid(lowpass=low, highpasses=(jnp.zeros((h, w, 6), jnp.complex64),))
+        np.testing.assert_allclose(np.asarray(t.synthesis_legall_ll(ll4)),
+                                   np.asarray(t.inverse(pyr)), atol=1e-4)
+
+    @pytest.mark.parametrize("shape", [(72, 136), (68, 150)])
+    def test_legall_hp_matches_zero_ll(self, rng, shape):
+        """Highpass-only LeGall synthesis == full synthesis with zero ll."""
+        h, w = shape
+        t = Transform2d()
+        subs = jnp.asarray(rng.randn(2, 12, h, w).astype(np.float32))
+        full = jnp.concatenate([jnp.zeros((2, 4, h, w), jnp.float32), subs], axis=1)
+        np.testing.assert_allclose(np.asarray(t.synthesis_legall_hp(subs)),
+                                   np.asarray(t.synthesis_legall(full)), atol=1e-5)
 
     def test_delta_embed_equals_full_inverse_embed(self, rng):
         """marked = u + inverse(delta) must match the old
         inverse(forward(u) + delta) to PR error (~2e-7 relative)."""
-        from vfp_tpu.ops.dtcwt import Transform2d, c2q_subs
+        from vfp_tpu.ops.dtcwt import c2q_subs
 
-        t = Transform2d(backend="xla")
+        t = Transform2d()
         b, h, w = 2, 72, 96
         u = jnp.asarray(rng.rand(b, h, w) * 255, jnp.float32)
         planes, sizes = t.forward_raw(u, nlevels=3)
@@ -229,58 +236,55 @@ class TestLowpassOnlySynthesis:
         np.testing.assert_allclose(got, want, atol=2e-3)
 
 
-class TestColorFusedAnalysis:
-    def test_matches_color_then_ll(self, rng):
-        """In-kernel Y/U lincombs must match bgr_to_yuv + lowpass-only
-        analysis to f32 rounding (decode-path fusion)."""
-        from vfp_tpu.kernels.dtcwt_level1 import (
-            dtcwt_level1_analysis_ll, dtcwt_level1_analysis_ll_color)
-        from vfp_tpu.ops.color import bgr_to_yuv
+class TestPackedPlanes:
+    """The packed tree-plane helpers the codecs run on agree with each other
+    and with the Pyramid interface."""
 
-        for h, w in ((64, 128), (66, 150)):
-            frames = jnp.asarray(rng.randint(0, 256, (2, h, w, 3)).astype(np.uint8))
-            yuv = bgr_to_yuv(frames.astype(jnp.float32))
-            want = jnp.stack(
-                [dtcwt_level1_analysis_ll(yuv[..., c], interpret=True) for c in (0, 1)],
-                axis=1)
-            got = dtcwt_level1_analysis_ll_color(frames, interpret=True)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-4)
+    @pytest.mark.parametrize("shape", [(72, 136), (30, 42)])
+    def test_lowpass_only_analysis_matches_full(self, rng, shape):
+        t = Transform2d()
+        x = jnp.asarray(rng.rand(2, *shape).astype(np.float32) * 255)
+        full, s_full = t.analysis_level1(x)
+        ll, s_ll = t.analysis_level1(x, lowpass_only=True)
+        assert s_full == s_ll == shape
+        np.testing.assert_array_equal(np.asarray(ll), np.asarray(full[:, :4]))
+        q_full, _ = t.analysis_qshift(full[:, :4])
+        q_ll, _ = t.analysis_qshift(full[:, :4], lowpass_only=True)
+        np.testing.assert_array_equal(np.asarray(q_ll), np.asarray(q_full[:, :4]))
 
+    @pytest.mark.parametrize("shape", [(72, 136), (34, 50)])
+    def test_qshift_hp_is_full_tail(self, rng, shape):
+        t = Transform2d()
+        ll4 = jnp.asarray(rng.rand(2, 4, *shape).astype(np.float32) * 255)
+        full, s = t.analysis_qshift(ll4)
+        hp, s_hp = t.analysis_qshift_hp(ll4)
+        assert s == s_hp and hp.shape == (2, 12, *full.shape[-2:])
+        np.testing.assert_array_equal(np.asarray(hp), np.asarray(full[:, 4:]))
 
-class TestFastDots:
-    """fast_dots=True: single-bf16-pass kernel matmuls (3-6x fewer MXU
-    passes).  The bf16 rounding (~2^-9 relative) must stay below the codecs'
-    decision noise: key detection unchanged, image decisions unchanged."""
+    def test_forward_is_q2c_of_forward_raw(self, rng):
+        from vfp_tpu.ops.dtcwt import q2c_planes
 
-    def test_key_detection_fast(self, rng):
-        codec = DtcwtKey(fast_dots=True)
-        frames = natural_frames(rng, b=2, h=240, w=320)
-        cap = codec.wm_capacity((240, 320, 3))
-        wm = CorrShuffler(key=3).generate_wm(None, cap)
-        marked = np.asarray(
-            codec.mark_frames(jnp.asarray(frames), jnp.asarray(wm, jnp.float32)))
-        rec = np.asarray(codec.extract_frames(jnp.asarray(marked)))
-        deg, wrong = DeCorrShuffler(key=3), DeCorrShuffler(key=9)
-        assert all(bool(deg.degenerate(rec[i])) for i in range(2))
-        assert not any(bool(wrong.degenerate(rec[i])) for i in range(2))
-        psnr = 10 * np.log10(
-            255**2 / np.mean((marked.astype(float) - frames.astype(float)) ** 2))
-        assert psnr > 35, psnr
+        t = Transform2d()
+        x = jnp.asarray(rng.rand(2, 40, 56).astype(np.float32) * 255)
+        pyr = t.forward(x, nlevels=3)
+        planes, sizes = t.forward_raw(x, nlevels=3)
+        assert pyr._sizes == sizes
+        for hp, p in zip(pyr.highpasses, planes):
+            np.testing.assert_array_equal(np.asarray(hp), np.asarray(q2c_planes(p)))
+        ll4 = np.asarray(planes[-1][:, :4])
+        low = np.asarray(pyr.lowpass)
+        for ci, (rt, ct) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            np.testing.assert_array_equal(low[:, rt::2, ct::2], ll4[:, ci])
 
-    def test_img_decisions_match_exact(self, rng):
-        frames = natural_frames(rng, b=1, h=128, w=192)
-        img = (rng.rand(27, 48) > 0.5).astype(np.float32) * 255
-        outs = {}
-        for fast in (False, True):
-            codec = DtcwtImg(fast_dots=fast)
-            cap = codec.wm_capacity((128, 192, 3))
-            wm = BlockShuffler(key=5).generate_wm(img, cap)
-            marked = codec.mark_frames(jnp.asarray(frames), jnp.asarray(wm, jnp.float32))
-            rec = np.asarray(codec.extract_frames(marked))[0]
-            outs[fast] = np.asarray(
-                DeBlockShuffler(key=5).set_shape(img.shape).degenerate(rec))
-        agree = ((outs[True] > 127) == (outs[False] > 127)).mean()
-        assert agree > 0.97, agree
+    def test_inverse_raw_reads_only_highpasses_above_deepest(self, rng):
+        """Shallower levels may carry 16 planes or the 12 highpass ones."""
+        t = Transform2d()
+        x = jnp.asarray(rng.rand(1, 48, 64).astype(np.float32) * 255)
+        planes, sizes = t.forward_raw(x, nlevels=3)
+        a = t.inverse_raw(planes, sizes)
+        b = t.inverse_raw([planes[0][:, 4:], planes[1][:, 4:], planes[2]], sizes)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        np.testing.assert_allclose(np.asarray(a), np.asarray(x), atol=2e-3)
 
 
 class TestWmSpectrumHoist:
@@ -339,157 +343,30 @@ class TestWmSpectrumHoist:
         assert not calls  # no host materialization happened
 
 
-class TestFusedMasks:
-    """Single-launch mask kernel (kernels/dtcwt_masks.py) vs the XLA chain
-    (analysis_qshift_hp -> |q2c| -> mean2x2 -> rebin -> ceil/step): the
-    quantized masks must be IDENTICAL — boundary semantics included
-    (reflect-101 top row / left col, reference cv2.filter2D anchoring)."""
+class TestCodecMasks:
+    """The codec masks (analysis_qshift_hp -> |q2c| -> mean2x2 -> rebin ->
+    ceil/step) against a NumPy/cv2 rendering of the reference formula
+    (reference: dtcwt_key_encoder.py:29-33)."""
 
-    def test_matches_xla_chain(self, rng):
-        from vfp_tpu.kernels.dtcwt_masks import (dtcwt_qshift_masks,
-                                                 masks_eligible)
-        from vfp_tpu.ops.dtcwt import Transform2d, q2c_magnitudes
-        from vfp_tpu.ops.filters import filter2d_mean2x2, rebin_mean
+    @pytest.mark.parametrize("shape", [(64, 128), (68, 192)])
+    def test_masks_match_numpy_reference(self, rng, shape):
+        from vfp_tpu.ops.dtcwt import q2c_magnitudes
 
-        for h, w in ((64, 128), (68, 192), (132, 256)):
-            assert masks_eligible(h, w), (h, w)
-            ll4 = jnp.asarray(rng.rand(2, 4, h, w).astype(np.float32) * 100)
-            t = Transform2d(backend="xla")
-            hp2, _ = t.analysis_qshift_hp(ll4)
-            m = filter2d_mean2x2(q2c_magnitudes(hp2))
-            shape3 = ((hp2.shape[-2] + 1) // 2, (hp2.shape[-1] + 1) // 2)
-            want = np.asarray(jnp.ceil(rebin_mean(m, shape3) / 5.0))
-            got = np.asarray(dtcwt_qshift_masks(ll4, step=5.0, interpret=True))
-            np.testing.assert_array_equal(got, want)
-
-    def test_codec_masks_equal_through_kernel(self, rng):
-        """_masks3_kernel (zero_guard / normalization outside the kernel)
-        must equal _masks3_from_mags for both codec variants."""
-        import vfp_tpu.wm.dtcwt_codecs as dc
-        from vfp_tpu.ops.dtcwt import Transform2d, q2c_magnitudes
-
-        ll4 = jnp.asarray(rng.rand(2, 4, 64, 128).astype(np.float32) * 100)
-        t = Transform2d(backend="xla")
+        t = Transform2d()
+        ll4 = jnp.asarray(rng.rand(1, 4, *shape).astype(np.float32) * 100)
         hp2, _ = t.analysis_qshift_hp(ll4)
-        for cls in (dc.DtcwtKey, dc.DtcwtImg):
-            for guard in (False, True):
-                codec = cls()
-                want = np.asarray(codec._masks3_from_mags(
-                    q2c_magnitudes(hp2), (16, 32), zero_guard=guard))
-                # route the kernel path explicitly (CPU -> interpret)
-                from vfp_tpu.kernels.dtcwt_masks import dtcwt_qshift_masks
-                m = dtcwt_qshift_masks(ll4, step=codec.step, interpret=True,
-                                       fast=False)
-                if guard:
-                    m = jnp.where(m == 0, 0.01, m)
-                if codec.normalize_masks:
-                    mx = jnp.max(m, axis=(-2, -1), keepdims=True)
-                    m = m / jnp.maximum(12.0, mx)
-                got = np.asarray(jnp.moveaxis(m, 1, -1))
-                np.testing.assert_array_equal(got, want)
-
-
-class TestFusedDeltaSynthesis:
-    """Single-launch 3-level delta synthesis (kernels/dtcwt_delta.py) must
-    match the 3-kernel chain (syn_q -> syn_q_ll -> syn_legall_ll) to f32
-    rounding — the embed path's linearity identity rides on it."""
-
-    def test_matches_three_stage_chain(self, rng):
-        from vfp_tpu.kernels.dtcwt_delta import dtcwt_delta_synthesis
-        from vfp_tpu.ops.dtcwt import Transform2d
-
-        t = Transform2d(backend="xla")
-        for h3, w3 in ((17, 32), (16, 48), (34, 64)):
-            dsubs = jnp.asarray(rng.randn(2, 12, h3, w3).astype(np.float32))
-            d3 = jnp.concatenate(
-                [jnp.zeros((2, 4, h3, w3), jnp.float32), dsubs], axis=1)
-            dll2 = t.synthesis_qshift(d3)
-            dll1 = t.synthesis_qshift_ll(dll2)
-            want = np.asarray(t.synthesis_legall_ll(dll1))
-            got = np.asarray(dtcwt_delta_synthesis(dsubs, interpret=True))
-            np.testing.assert_allclose(got, want, atol=2e-6)
-
-
-class TestChainedAnalysis:
-    """Single-pad chained kernel layout (dtcwt_level1.py "Chained analysis"):
-    level 1 pads once with CHAIN_MARGIN and every downstream analysis kernel
-    consumes the previous kernel's RAW output.  Valid windows must be
-    BITWISE equal to the per-level pad/crop path — the chain only changes
-    pad geometry, never operand values or contraction sizes."""
-
-    SHAPES = ((128, 256), (160, 384))
-
-    def test_chain_kernels_bitwise_equal(self, rng):
-        from vfp_tpu.kernels.dtcwt_level1 import (
-            CHAIN_MARGIN, chain_eligible, dtcwt_level1_analysis_ll_color,
-            dtcwt_level1_analysis_ll_y, dtcwt_level1_ll_color_chain,
-            dtcwt_level1_ll_y_chain, dtcwt_qshift_analysis_hp,
-            dtcwt_qshift_analysis_ll, dtcwt_qshift_hp_chain,
-            dtcwt_qshift_ll_chain)
-        from vfp_tpu.kernels.dtcwt_masks import (dtcwt_qshift_masks,
-                                                 dtcwt_qshift_masks_chain)
-
-        m1, m2 = CHAIN_MARGIN // 2, CHAIN_MARGIN // 4
-        for h, w in self.SHAPES:
-            assert chain_eligible(h, w)
-            f = jnp.asarray(rng.randint(0, 256, (2, h, w, 3)).astype(np.uint8))
-            raw = dtcwt_level1_ll_color_chain(f, interpret=True)
-            ref = dtcwt_level1_analysis_ll_color(f, interpret=True)
-            assert np.array_equal(
-                np.asarray(raw[..., m1 : m1 + h // 2, m1 : m1 + w // 2]),
-                np.asarray(ref))
-            rawy = dtcwt_level1_ll_y_chain(f, interpret=True)
-            refy = dtcwt_level1_analysis_ll_y(f, interpret=True)
-            assert np.array_equal(
-                np.asarray(rawy[..., m1 : m1 + h // 2, m1 : m1 + w // 2]),
-                np.asarray(refy))
-            ll2_raw = dtcwt_qshift_ll_chain(raw[:, 1], interpret=True)
-            ll2_ref = dtcwt_qshift_analysis_ll(ref[:, 1], interpret=True)
-            assert np.array_equal(
-                np.asarray(ll2_raw[..., m2 : m2 + h // 4, m2 : m2 + w // 4]),
-                np.asarray(ll2_ref))
-            hp3 = dtcwt_qshift_hp_chain(ll2_raw, (h // 8, w // 8),
-                                        interpret=True)
-            hp3_ref = dtcwt_qshift_analysis_hp(ll2_ref, interpret=True)
-            assert np.array_equal(np.asarray(hp3), np.asarray(hp3_ref))
-            mk = dtcwt_qshift_masks_chain(raw[:, 0], (h // 8, w // 8),
-                                          step=5.0, interpret=True)
-            mk_ref = dtcwt_qshift_masks(ref[:, 0], step=5.0, interpret=True)
-            assert np.array_equal(np.asarray(mk), np.asarray(mk_ref))
-
-    def test_codec_chain_paths_match_unchained(self, rng):
-        """Codec-level: the chained mark delta and decode must match the
-        per-level path on the same frames (kernel interpret vs the codec's
-        XLA fallback; f32 tolerance)."""
-        from vfp_tpu.kernels.dtcwt_level1 import (dtcwt_level1_ll_color_chain,
-                                                  dtcwt_level1_ll_y_chain)
-        from vfp_tpu.wm.dtcwt_codecs import DtcwtKey
-
-        h, w = 128, 256
-        # fast_dots=False: the XLA fallback is always exact f32, so the
-        # comparison needs the kernels' exact 3-pass mode (the quantized
-        # masks amplify bf16 rounding into whole mask steps otherwise)
-        codec = DtcwtKey(fast_dots=False)
-        f = jnp.asarray(rng.randint(0, 256, (2, h, w, 3)).astype(np.uint8))
-        wm = jnp.asarray(rng.randint(0, 2, codec.wm_capacity((h, w, 3))),
-                         jnp.float32)
-        wm_hp = codec.wm_highpass(wm)
-        # mark delta
-        y_raw = dtcwt_level1_ll_y_chain(f, interpret=True)
-        du_chain = np.asarray(
-            codec._embed_delta_chain(y_raw, wm_hp, (h, w), True))
-        yuv = None
-        from vfp_tpu.ops.color import bgr_to_yuv
-
-        yuv = bgr_to_yuv(f.astype(jnp.float32))
-        t = codec._t()
-        y_ll1, s0 = t.analysis_level1(yuv[..., 0], lowpass_only=True)
-        du_ref = np.asarray(codec._embed_delta_from_ll1(y_ll1, wm_hp, s0))
-        np.testing.assert_allclose(du_chain, du_ref, atol=2e-4)
-        # decode
-        ll1 = dtcwt_level1_ll_color_chain(f, interpret=True)
-        dec_chain = np.asarray(
-            codec._decode_from_ll1_chain(ll1[:, 0], ll1[:, 1], (h, w), True))
-        dec_ref = np.asarray(
-            codec._decode_channel_raw(yuv[..., 0], yuv[..., 1]))
-        np.testing.assert_allclose(dec_chain, dec_ref, atol=2e-4)
+        mags = np.asarray(q2c_magnitudes(hp2))[0]  # [6, h2, w2]
+        h3, w3 = (mags.shape[1] + 1) // 2, (mags.shape[2] + 1) // 2
+        for cls in (DtcwtKey, DtcwtImg):
+            codec = cls()
+            got = np.asarray(codec._masks3_from_mags(jnp.asarray(mags[None]), (h3, w3)))[0]
+            want = []
+            for m in mags:
+                f = cv2.filter2D(m, -1, np.full((2, 2), 0.25, np.float32))
+                fp = np.zeros((2 * h3, 2 * w3), np.float32)
+                fp[: f.shape[0], : f.shape[1]] = f
+                want.append(np.ceil(fp.reshape(h3, 2, w3, 2).mean(axis=(1, 3)) / codec.step))
+            want = np.stack(want, axis=-1)
+            if codec.normalize_masks:
+                want = want / np.maximum(12.0, want.max(axis=(0, 1), keepdims=True))
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

@@ -65,10 +65,10 @@ class TestRoundtrip:
 
 
 class TestOracleParity:
-    """The TPU codec must interoperate with the reference algorithm."""
+    """The batched codec must interoperate with the reference algorithm."""
 
     def test_decode_oracle_marked(self, rng):
-        """Frames marked by the reference math must decode on the TPU path.
+        """Frames marked by the reference math must decode on the batched path.
 
         iid-random uint8 frames are the worst case: the marked frame's u8
         round-off perturbs s0 by ~1, leaving some blocks within float noise
@@ -89,8 +89,8 @@ class TestOracleParity:
         payload = DeShuffler(key=0).set_shape(PAYLOAD.shape).degenerate(bits)
         np.testing.assert_array_equal(payload, PAYLOAD)
 
-    def test_oracle_decodes_tpu_marked(self, rng):
-        """Frames marked on the TPU path must decode with the reference math."""
+    def test_oracle_decodes_batched_marked(self, rng):
+        """Frames marked on the batched path must decode with the reference math."""
         codec = DwtDctSvd()
         frame = rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)
         cap = codec.wm_capacity(frame.shape)

@@ -394,22 +394,33 @@ class TestU8Wire:
             vote = (np.mean(recovered, 0) >= 0.5).astype(np.uint8)
             np.testing.assert_array_equal(vote, payload_for_segment(1, v))
 
-    def test_auto_wire_falls_back_to_host_when_backend_dead(self, monkeypatch):
-        """Outage policy: with no VFP_LL_WIRE override and the backend
-        probe failed, the transport resolves to 'host' and use_lowlink
-        turns ON for the flagship regardless of backend — workflows keep
-        running instead of blocking forever in backend init."""
+    def test_lowlink_off_by_default_without_probe(self, monkeypatch):
+        """With neither VFP_LOWLINK nor VFP_LL_WIRE set the transport is off
+        and the wire defaults to 'u8': no backend probe decides it."""
         from vfp_tpu.pipeline import lowlink
         from vfp_tpu.pipeline.embedder import use_lowlink
 
         monkeypatch.delenv("VFP_LL_WIRE", raising=False)
         monkeypatch.delenv("VFP_LOWLINK", raising=False)
-        monkeypatch.setattr(lowlink, "_BACKEND_OK", False)
-        monkeypatch.setattr(lowlink, "_PROBE_RESULT", [])  # probe still hung
-        assert lowlink.default_wire() == "host"
-        assert use_lowlink(DwtDctSvd()) is True
-        monkeypatch.setattr(lowlink, "_BACKEND_OK", True)
+        assert not hasattr(lowlink, "backend_reachable")
         assert lowlink.default_wire() == "u8"
+        assert use_lowlink(DwtDctSvd()) is False
+
+    def test_lowlink_on_only_when_asked(self, monkeypatch):
+        """VFP_LOWLINK=1 or an explicit wire turns it on for the flagship;
+        VFP_LOWLINK=0 wins over a wire; other codecs never use it."""
+        from vfp_tpu.pipeline.embedder import use_lowlink
+        from vfp_tpu.wm import DctQim
+
+        monkeypatch.delenv("VFP_LL_WIRE", raising=False)
+        monkeypatch.setenv("VFP_LOWLINK", "1")
+        assert use_lowlink(DwtDctSvd()) is True
+        assert use_lowlink(DctQim()) is False
+        monkeypatch.delenv("VFP_LOWLINK")
+        monkeypatch.setenv("VFP_LL_WIRE", "host")
+        assert use_lowlink(DwtDctSvd()) is True
+        monkeypatch.setenv("VFP_LOWLINK", "0")
+        assert use_lowlink(DwtDctSvd()) is False
 
     def test_two_plane_packed_u8(self, rng):
         """The packed two-plane dispatcher under the u8 wire: variants
@@ -519,15 +530,6 @@ class TestWireAwareCaches:
         monkeypatch.setenv("VFP_LL_WIRE", "hostonly")
         with pytest.raises(ValueError, match="VFP_LL_WIRE"):
             default_wire()
-
-    def test_probe_upgrade_after_straggler_success(self, monkeypatch):
-        """A slow-but-alive backend is not conflated with a dead one: when
-        the daemon probe finishes after the timeout, the verdict upgrades."""
-        from vfp_tpu.pipeline import lowlink
-
-        monkeypatch.setattr(lowlink, "_BACKEND_OK", False)
-        monkeypatch.setattr(lowlink, "_PROBE_RESULT", [True])
-        assert lowlink.backend_reachable() is True
 
 
 class TestU8WireContentSweep:

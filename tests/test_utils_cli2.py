@@ -117,7 +117,8 @@ class TestLeakTraceCliFlags:
         reloc.mkdir()
         stale.write_text("old run")
         monkeypatch.chdir(tmp_path)  # 'detection' is relative on purpose
-        main(["trace", str(base / "leaked_video.avi"), "detection",
+        leaked = next(base.glob("leaked_video.*"))  # .rawv in, .rawv out
+        main(["trace", str(leaked), "detection",
               "--payload-file", str(base / "segment_payloads.json"),
               "--copies-file", str(base / "segment_copies.json"),
               "--clean", "--segment-duration", "1"])

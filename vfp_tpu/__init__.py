@@ -1,6 +1,6 @@
-"""vfp_tpu — TPU-native forensic video watermarking & HLS fingerprinting.
+"""vfp_tpu — forensic video watermarking & HLS fingerprinting in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
+A ground-up JAX/XLA rebuild of the capabilities of the reference
 ``vikasdimaniya/video-fingerprinting`` ("offmark-py") framework: invisible
 per-frame frequency-domain watermark codecs, keyed payload spread/recovery,
 batched video pipelines, HLS per-segment fingerprinting, leak simulation and
@@ -8,7 +8,8 @@ leak tracing, and a serving layer.
 
 Design: frames are a batch axis (``[B, H, W, C]`` tensors), every codec is a
 pure jittable function, parallelism is expressed with ``jax.sharding`` over a
-device mesh, and the hot embed/extract path has a fused Pallas TPU kernel.
+device mesh, and XLA compiles each codec's embed/extract path for the
+device (an NVIDIA GPU, or the CPU for tests).
 """
 
 __version__ = "0.1.0"

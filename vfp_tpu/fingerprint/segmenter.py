@@ -2,9 +2,11 @@
 
 With an ffmpeg binary: re-encode with forced keyframes at boundaries
 (reference: tests/mark_video_to_hls.py:45-71).  Without one: frame-exact
-chunking through the reader/writer stack — every segment gets exactly
-round(duration * fps) frames, which is *more* precise than keyframe-dependent
-cutting and makes leak re-segmentation align perfectly.
+chunking through the reader/writer stack —
+every segment gets exactly round(duration * fps) frames, which is *more*
+precise than keyframe-dependent cutting and makes leak re-segmentation
+align perfectly.  ``.rawv`` input keeps ``.rawv`` segments (lossless, and no
+codec library needed); anything else is chunked into MJPEG-AVI.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ def segment_video(
         )
         return sorted(segments_dir.glob("segment_*.mp4"))
 
+    ext = ".rawv" if Path(input_file).suffix == ".rawv" else ".avi"
     reader = open_reader(input_file)
     n_per = frames_per_segment(reader.fps, segment_duration)
     fps = reader.fps
@@ -52,7 +55,7 @@ def segment_video(
                 if batch is None:
                     break
                 if writer is None:
-                    p = segments_dir / f"segment_{idx:03d}.avi"
+                    p = segments_dir / f"segment_{idx:03d}{ext}"
                     writer = open_writer(p, reader.width, reader.height, reader.fps, quality)
                     paths.append(p)
                 writer.write_batch(batch)

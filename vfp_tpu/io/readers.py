@@ -2,7 +2,7 @@
 
 Unlike the reference's one-frame-at-a-time pipe read (reference:
 src/offmark/video/frame_reader.py:53-64), readers here expose
-``read_batch(n) -> [k, H, W, 3] | None`` so the pipeline can feed the TPU
+``read_batch(n) -> [k, H, W, 3] | None`` so the pipeline can feed the device
 whole batches and overlap decode with compute.
 """
 

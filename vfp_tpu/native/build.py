@@ -3,7 +3,10 @@
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
+import os
+import platform
 import shutil
 import subprocess
 from functools import lru_cache
@@ -15,8 +18,27 @@ _SRC = Path(__file__).parent / "vfpio.cpp"
 _BUILD = Path(__file__).parent / "build"
 
 
+def _compile_flags() -> list[str]:
+    # -mf16c/-mavx2 (x86 only): _Float16 (host-LL f16 output) needs F16C;
+    # -ffp-contract=off: no FMA fusion, so float association matches the
+    # NumPy/cv2 reference paths as closely as the source order implies
+    arch_flags = (["-mf16c", "-mavx2"]
+                  if platform.machine() in ("x86_64", "AMD64", "i686") else [])
+    return ["-O3", *arch_flags, "-ffp-contract=off", "-shared", "-fPIC",
+            "-std=c++17", "-pthread"]
+
+
+def library_path() -> Path:
+    """The library built from this exact vfpio.cpp with these flags: the
+    name carries a hash of both, so a library copied in with a checkout is
+    only ever reused for the source and flags it was built from."""
+    key = hashlib.sha256(
+        _SRC.read_bytes() + "\0".join(_compile_flags()).encode()).hexdigest()[:16]
+    return _BUILD / f"libvfpio-{key}.so"
+
+
 def have_native() -> bool:
-    return shutil.which("g++") is not None or (_BUILD / "libvfpio.so").exists()
+    return shutil.which("g++") is not None or library_path().exists()
 
 
 _LOAD_ERROR: list = []  # lru_cache does not cache exceptions; a failed
@@ -42,24 +64,21 @@ def load_vfpio():
 
 
 def _load_vfpio_uncached():
-    so = _BUILD / "libvfpio.so"
-    if not so.exists() or so.stat().st_mtime < _SRC.stat().st_mtime:
+    so = library_path()
+    if not so.exists():
         if shutil.which("g++") is None:
-            raise RuntimeError("no g++ and no prebuilt libvfpio.so")
+            raise RuntimeError(f"no g++ and no prebuilt {so.name}")
         _BUILD.mkdir(exist_ok=True)
-        # -mf16c/-mavx2 (x86 only): _Float16 (host-LL f16 output) needs F16C;
-        # -ffp-contract=off: no FMA fusion, so float association matches the
-        # NumPy/cv2 reference paths as closely as the source order implies
-        import platform
-
-        arch_flags = (["-mf16c", "-mavx2"]
-                      if platform.machine() in ("x86_64", "AMD64", "i686")
-                      else [])
-        cmd = ["g++", "-O3", *arch_flags, "-ffp-contract=off",
-               "-shared", "-fPIC", "-std=c++17", "-pthread",
-               str(_SRC), "-o", str(so)]
+        # build under a private name, then rename: concurrent processes
+        # (test workers, farm workers) never load a half-written library
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = ["g++", *_compile_flags(), str(_SRC), "-o", str(tmp)]
         logger.info("building vfpio: %s", " ".join(cmd))
-        subprocess.run(cmd, check=True, capture_output=True)
+        try:
+            subprocess.run(cmd, check=True, capture_output=True)
+            os.replace(tmp, so)
+        finally:
+            tmp.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     lib.vfpio_reader_open_file.restype = ctypes.c_void_p
     lib.vfpio_reader_open_file.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_long]

@@ -4,7 +4,7 @@
 // read() (reference: src/offmark/video/frame_reader.py:53-64).  This engine
 // moves streaming off the GIL: a producer thread reads frames (from a raw
 // frame file or any command producing rawvideo on stdout, e.g. ffmpeg) into
-// a ring of preallocated buffers while Python/TPU consume previous batches.
+// a ring of preallocated buffers while Python and the device consume previous batches.
 // The writer mirrors it with a consumer thread draining a ring into a file
 // or a command's stdin.
 //

@@ -4,7 +4,7 @@ Replaces the reference's per-block ``cv2.dct`` / ``cv2.idct`` calls
 (reference: src/offmark/embed/dwt_dct_svd_encoder.py:43-45,
 dct_encoder.py:29-37).  cv2.dct(A) == D @ A @ D.T with the orthonormal DCT-II
 matrix D (verified numerically against cv2 in tests/test_ops.py), so a batch
-of blocks becomes one einsum that XLA maps onto the MXU.
+of blocks becomes one einsum.
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# QIM bins are sensitive to matmul precision: on TPU the MXU would otherwise
-# run f32 einsums through bf16 passes, flipping borderline bits.
+# QIM bins are sensitive to matmul precision: at default precision a GPU
+# runs f32 einsums in TF32, flipping borderline bits.
 _HI = jax.lax.Precision.HIGHEST
 
 

@@ -32,7 +32,6 @@ no data-dependent control flow).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -158,52 +157,33 @@ def _pad_even(x):
     return x, (h, w)
 
 
+def _qshift_banks(rt, ct):
+    """(h0 row, h1 row, h0 col, h1 col) q-shift analysis filters of a tree."""
+    h0r, h1r = (C.QSHIFT_H0A, C.QSHIFT_H1A) if rt == 0 else (C.QSHIFT_H0B, C.QSHIFT_H1B)
+    h0c, h1c = (C.QSHIFT_H0A, C.QSHIFT_H1A) if ct == 0 else (C.QSHIFT_H0B, C.QSHIFT_H1B)
+    return h0r, h1r, h0c, h1c
+
+
+def _qshift_synth(rt, ct):
+    """(g0 row, g1 row, g0 col, g1 col, row roll, col roll) of a tree."""
+    g0r, g1r = (C.QSHIFT_G0A, C.QSHIFT_G1A) if rt == 0 else (C.QSHIFT_G0B, C.QSHIFT_G1B)
+    g0c, g1c = (C.QSHIFT_G0A, C.QSHIFT_G1A) if ct == 0 else (C.QSHIFT_G0B, C.QSHIFT_G1B)
+    rr = C.QSHIFT_ROLL_A if rt == 0 else C.QSHIFT_ROLL_B
+    rc = C.QSHIFT_ROLL_A if ct == 0 else C.QSHIFT_ROLL_B
+    return g0r, g1r, g0c, g1c, rr, rc
+
+
 class Transform2d:
     """Drop-in for dtcwt.Transform2d (forward/inverse), batched over leading axes.
 
-    ``backend``: 'auto' (fused Pallas analysis kernels on TPU for eligible
-    shapes, XLA otherwise), 'xla' (always the op-by-op path), or 'pallas'
-    (force the kernels; interpret mode off-TPU — for tests).
-
-    ``fast``: single-bf16-pass kernel matmuls (3-6x fewer MXU passes; data
-    rounded to 8 mantissa bits — see dtcwt_level1.dot_exact).  Applies only
-    to the kernel path; the XLA fallback stays at full f32 precision."""
-
-    def __init__(self, backend: str = "auto", fast: bool = False):
-        self.backend = backend
-        self.fast = fast
-
-    def _kernel_mode(self, h: int, w: int):
-        """None (XLA path) or the kernels' ``interpret`` flag."""
-        if self.backend == "xla":
-            return None
-        try:
-            from ..kernels.dtcwt_level1 import kernel_eligible
-        except Exception:  # pragma: no cover - kernels always importable
-            return None
-        if not kernel_eligible(h, w):
-            return None
-        if self.backend == "pallas":
-            return jax.default_backend() != "tpu"  # interpret off-TPU
-        return False if jax.default_backend() == "tpu" else None
-
-    def _syn_kernel_mode(self, h: int, w: int):
-        """None (XLA path) or the synthesis kernels' ``interpret`` flag."""
-        if self.backend == "xla":
-            return None
-        try:
-            from ..kernels.dtcwt_synthesis import synthesis_eligible
-        except Exception:  # pragma: no cover - kernels always importable
-            return None
-        if not synthesis_eligible(h, w):
-            return None
-        if self.backend == "pallas":
-            return jax.default_backend() != "tpu"
-        return False if jax.default_backend() == "tpu" else None
+    The transform is carried in a packed tree-domain plane layout
+    [..., 16, h, w] = [ll*4, lh*4, hl*4, hh*4] (trees (rt, ct) row-major);
+    ``forward``/``inverse`` add the q2c/c2q combines and the lowpass
+    interleave of the dtcwt package's Pyramid on top of it."""
 
     @staticmethod
     def _pack_planes(ll, subs):
-        """(ll dict, subs dict) -> [..., 16, h, w] in the kernels' plane order."""
+        """(ll dict, subs dict) -> [..., 16, h, w] in packed plane order."""
         return jnp.stack(
             [ll[tc] for tc in _TREES]
             + [subs[tc][band] for band in range(3) for tc in _TREES],
@@ -212,7 +192,7 @@ class Transform2d:
 
     @staticmethod
     def _unpack_planes(planes):
-        """[..., 16, h, w] kernel output -> (ll dict, subs dict) in _TREES order."""
+        """[..., 16, h, w] packed planes -> (ll dict, subs dict) in _TREES order."""
         ll = {}
         subs = {}
         for ci, tc in enumerate(_TREES):
@@ -225,72 +205,18 @@ class Transform2d:
         squeeze = x.ndim == 2
         if squeeze:
             x = x[None]
-        highs = []
-        sizes = []
-        x, orig = _pad_even(x)
-        sizes.append(orig)
-        lead = x.shape[:-2]
-        h, w = x.shape[-2:]
-        # Level 1: same biorthogonal filters, tree = sampling phase.
-        mode = self._kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_level1 import dtcwt_level1_analysis
-            planes = dtcwt_level1_analysis(x.reshape(-1, h, w), interpret=mode, fast=self.fast)
-            ll, subs = self._unpack_planes(planes.reshape(*lead, 16, h // 2, w // 2))
-        else:
-            ll = {}
-            subs = {}
-            for rt, ct in _TREES:
-                l, lh, hl, hh = _analysis2d(x, C.LEGALL_H0, C.LEGALL_H1, rt, ct)
-                ll[(rt, ct)] = l
-                subs[(rt, ct)] = (lh, hl, hh)
-        highs.append(self._combine(subs))
-        # Levels >= 2: per-tree q-shift filters, fixed phase 0.
-        for lev in range(1, nlevels):
-            stack, lvl_sizes = _pad_even(jnp.stack([ll[tc] for tc in _TREES], axis=-3))
-            h, w = stack.shape[-2:]
-            mode = self._kernel_mode(h, w)
-            if mode is not None:
-                from ..kernels.dtcwt_level1 import dtcwt_qshift_analysis
-                planes = dtcwt_qshift_analysis(stack.reshape(-1, 4, h, w), interpret=mode, fast=self.fast)
-                ll, subs = self._unpack_planes(planes.reshape(*lead, 16, h // 2, w // 2))
-            else:
-                subs = {}
-                for ci, (rt, ct) in enumerate(_TREES):
-                    xi = stack[..., ci, :, :]
-                    h0r, h1r = (C.QSHIFT_H0A, C.QSHIFT_H1A) if rt == 0 else (C.QSHIFT_H0B, C.QSHIFT_H1B)
-                    h0c, h1c = (C.QSHIFT_H0A, C.QSHIFT_H1A) if ct == 0 else (C.QSHIFT_H0B, C.QSHIFT_H1B)
-                    lo = _along_rows(down2, xi, h0r, 0)
-                    hi = _along_rows(down2, xi, h1r, 0)
-                    l = down2(lo, h0c, 0)
-                    lh = down2(lo, h1c, 0)
-                    hl = down2(hi, h0c, 0)
-                    hh = down2(hi, h1c, 0)
-                    ll[(rt, ct)] = l
-                    subs[(rt, ct)] = (lh, hl, hh)
-            sizes.append(lvl_sizes)
-            highs.append(self._combine(subs))
+        planes_list, sizes = self.forward_raw(x, nlevels)
+        highs = [q2c_planes(p) for p in planes_list]
         # Interleave the 4 tree lowpasses: row tree -> row phase, col tree -> col phase.
-        h2, w2 = ll[(0, 0)].shape[-2], ll[(0, 0)].shape[-1]
-        low = jnp.zeros((*ll[(0, 0)].shape[:-2], 2 * h2, 2 * w2), jnp.float32)
-        for (rt, ct), l in ll.items():
-            low = low.at[..., rt::2, ct::2].set(l)
+        ll4 = planes_list[-1][..., :4, :, :]
+        h2, w2 = ll4.shape[-2:]
+        low = jnp.zeros((*ll4.shape[:-3], 2 * h2, 2 * w2), jnp.float32)
+        for ci, (rt, ct) in enumerate(_TREES):
+            low = low.at[..., rt::2, ct::2].set(ll4[..., ci, :, :])
         pyr = Pyramid(lowpass=low[0] if squeeze else low,
                       highpasses=tuple(h[0] if squeeze else h for h in highs))
         pyr._sizes = sizes  # original (pre-pad) sizes per level, for inverse
         return pyr
-
-    @staticmethod
-    def _combine(subs):
-        out = []
-        for i in range(3):  # LH, HL, HH
-            aa = subs[(0, 0)][i]
-            ab = subs[(0, 1)][i]
-            ba = subs[(1, 0)][i]
-            bb = subs[(1, 1)][i]
-            zp, zm = _q2c(aa, ab, ba, bb)
-            out += [zp, zm]
-        return jnp.stack(out, axis=-1)  # [..., h, w, 6]
 
     def inverse(self, pyr: Pyramid) -> jnp.ndarray:
         highs = pyr.highpasses
@@ -299,228 +225,70 @@ class Transform2d:
         if squeeze:
             low = low[None]
             highs = tuple(h[None] for h in highs)
-        nlevels = len(highs)
-        sizes = getattr(pyr, "_sizes", None)
         # Split interleaved lowpass back into per-tree arrays.
-        ll = {(rt, ct): low[..., rt::2, ct::2] for rt, ct in _TREES}
-        for lev in range(nlevels - 1, 0, -1):
-            subs = self._split(highs[lev])
-            h, w = ll[(0, 0)].shape[-2:]
-            mode = self._syn_kernel_mode(h, w)
-            if mode is not None:
-                from ..kernels.dtcwt_synthesis import dtcwt_qshift_synthesis
-                planes = self._pack_planes(ll, subs)
-                lead = planes.shape[:-3]
-                out = dtcwt_qshift_synthesis(
-                    planes.reshape(-1, 16, h, w), interpret=mode, fast=self.fast
-                ).reshape(*lead, 4, 2 * h, 2 * w)
-                if sizes is not None:
-                    oh, ow = sizes[lev]
-                    out = out[..., :oh, :ow]
-                ll = {tc: out[..., ci, :, :] for ci, tc in enumerate(_TREES)}
-                continue
-            for rt, ct in _TREES:
-                lh, hl, hh = subs[(rt, ct)]
-                g0r, g1r = (C.QSHIFT_G0A, C.QSHIFT_G1A) if rt == 0 else (C.QSHIFT_G0B, C.QSHIFT_G1B)
-                g0c, g1c = (C.QSHIFT_G0A, C.QSHIFT_G1A) if ct == 0 else (C.QSHIFT_G0B, C.QSHIFT_G1B)
-                rr = C.QSHIFT_ROLL_A if rt == 0 else C.QSHIFT_ROLL_B
-                rc = C.QSHIFT_ROLL_A if ct == 0 else C.QSHIFT_ROLL_B
-                lo = up2(ll[(rt, ct)], g0c, 0) + up2(lh, g1c, 0)
-                hi = up2(hl, g0c, 0) + up2(hh, g1c, 0)
-                lo = jnp.roll(lo, rc, axis=-1)
-                hi = jnp.roll(hi, rc, axis=-1)
-                x = _along_rows(up2, lo, g0r, 0) + _along_rows(up2, hi, g1r, 0)
-                x = jnp.roll(x, rr, axis=-2)
-                if sizes is not None:
-                    oh, ow = sizes[lev]
-                    x = x[..., :oh, :ow]
-                ll[(rt, ct)] = x
-        # Level 1 inverse.
-        subs = self._split(highs[0])
-        h, w = ll[(0, 0)].shape[-2:]
-        mode = self._syn_kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis
-            planes = self._pack_planes(ll, subs)
-            lead = planes.shape[:-3]
-            out = dtcwt_legall_synthesis(
-                planes.reshape(-1, 16, h, w), interpret=mode, fast=self.fast
-            ).reshape(*lead, 2 * h, 2 * w)
-            if sizes is not None:
-                oh, ow = sizes[0]
-                out = out[..., :oh, :ow]
-            return out[0] if squeeze else out
-        out = 0.0
-        for rt, ct in _TREES:
-            lh, hl, hh = subs[(rt, ct)]
-            x = _synthesis2d(
-                ll[(rt, ct)], lh, hl, hh, C.LEGALL_G0, C.LEGALL_G1,
-                rt, ct, C.LEGALL_ROLL, C.LEGALL_ROLL,
-            )
-            out = out + x
-        out = out * 0.25  # 4 trees average at level 1
-        if sizes is not None:
-            oh, ow = sizes[0]
-            out = out[..., :oh, :ow]
+        ll4 = jnp.stack([low[..., rt::2, ct::2] for rt, ct in _TREES], axis=-3)
+        planes_list = [c2q_subs(h) for h in highs]
+        planes_list[-1] = jnp.concatenate([ll4, planes_list[-1]], axis=-3)
+        out = self.inverse_raw(planes_list, getattr(pyr, "_sizes", None))
         return out[0] if squeeze else out
-
-    @staticmethod
-    def _split(high):
-        subs = {}
-        vals = [high[..., i] for i in range(6)]
-        for i, name in enumerate(range(3)):
-            aa, ab, ba, bb = _c2q(vals[2 * i], vals[2 * i + 1])
-            subs.setdefault((0, 0), []).append(aa)
-            subs.setdefault((0, 1), []).append(ab)
-            subs.setdefault((1, 0), []).append(ba)
-            subs.setdefault((1, 1), []).append(bb)
-        return {k: tuple(v) for k, v in subs.items()}
 
     # -- raw tree-domain interface --------------------------------------------
     # The q2c combine is a fixed unitary map; consumers that only touch a few
     # levels (the watermark codecs modify level 3 and read level-2
-    # magnitudes) can stay in the kernels' NATIVE packed-plane layout
-    # [ll*4, lh*4, hl*4, hh*4] (combos (rt, ct) row-major) and convert just
-    # the planes they do complex math on.  Profiling on chip showed the
-    # q2c/c2q combines + the lowpass interleave were ~half of the codec's
-    # device time — all of it avoidable glue.
+    # magnitudes) stay in the packed-plane layout and convert just the
+    # planes they do complex math on: the q2c/c2q combines and the lowpass
+    # interleave are glue the codecs never need.
 
     def forward_raw(self, x, nlevels: int = 3):
         """[..., H, W] -> (planes_list, sizes): planes_list[lev] is
         [..., 16, h, w] pre-q2c tree-domain planes; [..., :4, :, :] are the
         4 tree lowpasses that fed level lev+1 (deepest level's are the
         final lowpasses, NOT interleaved)."""
-        x = jnp.asarray(x, jnp.float32)
-        planes_out = []
-        sizes = []
-        x, orig = _pad_even(x)
-        sizes.append(orig)
-        lead = x.shape[:-2]
-        h, w = x.shape[-2:]
-        mode = self._kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_level1 import dtcwt_level1_analysis
-            planes = dtcwt_level1_analysis(x.reshape(-1, h, w), interpret=mode, fast=self.fast)
-            planes = planes.reshape(*lead, 16, h // 2, w // 2)
-        else:
-            ll = {}
-            subs = {}
-            for rt, ct in _TREES:
-                l, lh, hl, hh = _analysis2d(x, C.LEGALL_H0, C.LEGALL_H1, rt, ct)
-                ll[(rt, ct)] = l
-                subs[(rt, ct)] = (lh, hl, hh)
-            planes = self._pack_planes(ll, subs)
-        planes_out.append(planes)
+        planes, orig = self.analysis_level1(x)
+        planes_out = [planes]
+        sizes = [orig]
         for lev in range(1, nlevels):
-            stack, lvl_sizes = _pad_even(planes[..., :4, :, :])
-            h, w = stack.shape[-2:]
-            mode = self._kernel_mode(h, w)
-            if mode is not None:
-                from ..kernels.dtcwt_level1 import dtcwt_qshift_analysis
-                planes = dtcwt_qshift_analysis(stack.reshape(-1, 4, h, w),
-                                               interpret=mode, fast=self.fast)
-                planes = planes.reshape(*lead, 16, h // 2, w // 2)
-            else:
-                ll = {}
-                subs = {}
-                for ci, (rt, ct) in enumerate(_TREES):
-                    xi = stack[..., ci, :, :]
-                    h0r, h1r = (C.QSHIFT_H0A, C.QSHIFT_H1A) if rt == 0 else (C.QSHIFT_H0B, C.QSHIFT_H1B)
-                    h0c, h1c = (C.QSHIFT_H0A, C.QSHIFT_H1A) if ct == 0 else (C.QSHIFT_H0B, C.QSHIFT_H1B)
-                    lo = _along_rows(down2, xi, h0r, 0)
-                    hi = _along_rows(down2, xi, h1r, 0)
-                    ll[(rt, ct)] = down2(lo, h0c, 0)
-                    subs[(rt, ct)] = (down2(lo, h1c, 0), down2(hi, h0c, 0),
-                                      down2(hi, h1c, 0))
-                planes = self._pack_planes(ll, subs)
+            planes, lvl_sizes = self.analysis_qshift(planes[..., :4, :, :])
             sizes.append(lvl_sizes)
             planes_out.append(planes)
         return planes_out, sizes
 
     def inverse_raw(self, planes_list, sizes=None):
         """Inverse of forward_raw: reconstruct [..., H, W] from per-level raw
-        planes.  The ll planes of levels < deepest are ignored (recomputed by
-        the reconstruction); level 0 uses the LeGall bank, deeper levels the
-        q-shift bank, exactly like ``inverse``."""
+        planes.  Only the deepest level's ll planes are read (shallower
+        levels may carry 16 planes or just the 12 highpass ones); level 0
+        uses the LeGall bank, deeper levels the q-shift bank."""
         nlevels = len(planes_list)
-        lead = planes_list[-1].shape[:-3]
         ll4 = planes_list[-1][..., :4, :, :]
         for lev in range(nlevels - 1, 0, -1):
-            kplanes = jnp.concatenate(
-                [ll4, planes_list[lev][..., 4:, :, :]], axis=-3)
-            h, w = kplanes.shape[-2:]
-            mode = self._syn_kernel_mode(h, w)
-            if mode is not None:
-                from ..kernels.dtcwt_synthesis import dtcwt_qshift_synthesis
-                out = dtcwt_qshift_synthesis(
-                    kplanes.reshape(-1, 16, h, w), interpret=mode, fast=self.fast
-                ).reshape(*lead, 4, 2 * h, 2 * w)
-            else:
-                ll, subs = self._unpack_planes(kplanes)
-                outs = []
-                for rt, ct in _TREES:
-                    lh, hl, hh = subs[(rt, ct)]
-                    g0r, g1r = (C.QSHIFT_G0A, C.QSHIFT_G1A) if rt == 0 else (C.QSHIFT_G0B, C.QSHIFT_G1B)
-                    g0c, g1c = (C.QSHIFT_G0A, C.QSHIFT_G1A) if ct == 0 else (C.QSHIFT_G0B, C.QSHIFT_G1B)
-                    rr = C.QSHIFT_ROLL_A if rt == 0 else C.QSHIFT_ROLL_B
-                    rc = C.QSHIFT_ROLL_A if ct == 0 else C.QSHIFT_ROLL_B
-                    lo = up2(ll[(rt, ct)], g0c, 0) + up2(subs[(rt, ct)][0], g1c, 0)
-                    hi = up2(hl, g0c, 0) + up2(hh, g1c, 0)
-                    lo = jnp.roll(lo, rc, axis=-1)
-                    hi = jnp.roll(hi, rc, axis=-1)
-                    xx = _along_rows(up2, lo, g0r, 0) + _along_rows(up2, hi, g1r, 0)
-                    outs.append(jnp.roll(xx, rr, axis=-2))
-                out = jnp.stack(outs, axis=-3)
+            out = self.synthesis_qshift(
+                jnp.concatenate([ll4, planes_list[lev][..., -12:, :, :]], axis=-3))
             if sizes is not None:
                 oh, ow = sizes[lev]
                 out = out[..., :oh, :ow]
             ll4 = out
-        kplanes = jnp.concatenate(
-            [ll4, planes_list[0][..., 4:, :, :]], axis=-3)
-        h, w = kplanes.shape[-2:]
-        mode = self._syn_kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis
-            out = dtcwt_legall_synthesis(
-                kplanes.reshape(-1, 16, h, w), interpret=mode, fast=self.fast
-            ).reshape(*lead, 2 * h, 2 * w)
-        else:
-            ll, subs = self._unpack_planes(kplanes)
-            out = 0.0
-            for rt, ct in _TREES:
-                lh, hl, hh = subs[(rt, ct)]
-                out = out + _synthesis2d(
-                    ll[(rt, ct)], lh, hl, hh, C.LEGALL_G0, C.LEGALL_G1,
-                    rt, ct, C.LEGALL_ROLL, C.LEGALL_ROLL,
-                )
-            out = out * 0.25
+        out = self.synthesis_legall(
+            jnp.concatenate([ll4, planes_list[0][..., -12:, :, :]], axis=-3))
         if sizes is not None:
             oh, ow = sizes[0]
             out = out[..., :oh, :ow]
         return out
 
-
     # -- single-level building blocks (codec hot path) ------------------------
 
     def analysis_level1(self, x, lowpass_only: bool = False):
         """[..., H, W] -> (planes, orig_size): [..., 16, h, w] raw planes, or
-        [..., 4, h, w] lowpasses when ``lowpass_only`` (4x less HBM write —
-        the mask channel never reads its level-1 subbands)."""
+        [..., 4, h, w] lowpasses when ``lowpass_only`` (the mask channel
+        never reads its level-1 subbands).  Tree = sampling phase."""
         x = jnp.asarray(x, jnp.float32)
         x, orig = _pad_even(x)
-        lead = x.shape[:-2]
-        h, w = x.shape[-2:]
-        mode = self._kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_level1 import (dtcwt_level1_analysis,
-                                                dtcwt_level1_analysis_ll)
-            fn = dtcwt_level1_analysis_ll if lowpass_only else dtcwt_level1_analysis
-            n = 4 if lowpass_only else 16
-            planes = fn(x.reshape(-1, h, w), interpret=mode, fast=self.fast)
-            return planes.reshape(*lead, n, h // 2, w // 2), orig
         ll = {}
         subs = {}
         for rt, ct in _TREES:
+            if lowpass_only:
+                lo = _along_rows(down2, x, C.LEGALL_H0, rt)
+                ll[(rt, ct)] = down2(lo, C.LEGALL_H0, ct)
+                continue
             l, lh, hl, hh = _analysis2d(x, C.LEGALL_H0, C.LEGALL_H1, rt, ct)
             ll[(rt, ct)] = l
             subs[(rt, ct)] = (lh, hl, hh)
@@ -532,22 +300,11 @@ class Transform2d:
         """[..., 4, h, w] tree lowpasses -> (planes, pre_pad_size): one
         q-shift analysis level, [..., 16 or 4, h/2, w/2]."""
         stack, lvl_sizes = _pad_even(jnp.asarray(ll4, jnp.float32))
-        lead = stack.shape[:-3]
-        h, w = stack.shape[-2:]
-        mode = self._kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_level1 import (dtcwt_qshift_analysis,
-                                                dtcwt_qshift_analysis_ll)
-            fn = dtcwt_qshift_analysis_ll if lowpass_only else dtcwt_qshift_analysis
-            n = 4 if lowpass_only else 16
-            planes = fn(stack.reshape(-1, 4, h, w), interpret=mode, fast=self.fast)
-            return planes.reshape(*lead, n, h // 2, w // 2), lvl_sizes
         ll = {}
         subs = {}
         for ci, (rt, ct) in enumerate(_TREES):
             xi = stack[..., ci, :, :]
-            h0r, h1r = (C.QSHIFT_H0A, C.QSHIFT_H1A) if rt == 0 else (C.QSHIFT_H0B, C.QSHIFT_H1B)
-            h0c, h1c = (C.QSHIFT_H0A, C.QSHIFT_H1A) if ct == 0 else (C.QSHIFT_H0B, C.QSHIFT_H1B)
+            h0r, h1r, h0c, h1c = _qshift_banks(rt, ct)
             lo = _along_rows(down2, xi, h0r, 0)
             ll[(rt, ct)] = down2(lo, h0c, 0)
             if not lowpass_only:
@@ -560,42 +317,21 @@ class Transform2d:
 
     def analysis_qshift_hp(self, ll4):
         """Highpass-only q-shift level: [..., 4, h, w] tree lowpasses ->
-        ([..., 12, h/2, w/2] planes [lh*4, hl*4, hh*4], pre_pad_size).
-        For consumers that never read the next ll band (the codec mask and
-        level-3 coefficient paths) — 4 of 16 column convs and a quarter of
-        the HBM writes skipped.  Falls back to slicing the full analysis."""
-        stack, lvl_sizes = _pad_even(jnp.asarray(ll4, jnp.float32))
-        h, w = stack.shape[-2:]
-        mode = self._kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_level1 import dtcwt_qshift_analysis_hp
-
-            lead = stack.shape[:-3]
-            planes = dtcwt_qshift_analysis_hp(
-                stack.reshape(-1, 4, h, w), interpret=mode, fast=self.fast)
-            return planes.reshape(*lead, 12, h // 2, w // 2), lvl_sizes
+        ([..., 12, h/2, w/2] planes [lh*4, hl*4, hh*4], pre_pad_size),
+        for consumers that never read the next ll band (the codec mask and
+        level-3 coefficient paths).  The ll column filters are dead code
+        that XLA drops."""
         planes, lvl_sizes = self.analysis_qshift(ll4)
         return planes[..., 4:, :, :], lvl_sizes
 
     def synthesis_qshift(self, planes16):
         """[..., 16, h, w] raw planes -> [..., 4, 2h, 2w] tree lowpasses of
         the level below (one q-shift synthesis level, before cropping)."""
-        lead = planes16.shape[:-3]
-        h, w = planes16.shape[-2:]
-        mode = self._syn_kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_synthesis import dtcwt_qshift_synthesis
-            return dtcwt_qshift_synthesis(
-                planes16.reshape(-1, 16, h, w), interpret=mode, fast=self.fast
-            ).reshape(*lead, 4, 2 * h, 2 * w)
         ll, subs = self._unpack_planes(planes16)
         outs = []
         for rt, ct in _TREES:
             lh, hl, hh = subs[(rt, ct)]
-            g0r, g1r = (C.QSHIFT_G0A, C.QSHIFT_G1A) if rt == 0 else (C.QSHIFT_G0B, C.QSHIFT_G1B)
-            g0c, g1c = (C.QSHIFT_G0A, C.QSHIFT_G1A) if ct == 0 else (C.QSHIFT_G0B, C.QSHIFT_G1B)
-            rr = C.QSHIFT_ROLL_A if rt == 0 else C.QSHIFT_ROLL_B
-            rc = C.QSHIFT_ROLL_A if ct == 0 else C.QSHIFT_ROLL_B
+            g0r, g1r, g0c, g1c, rr, rc = _qshift_synth(rt, ct)
             lo = up2(ll[(rt, ct)], g0c, 0) + up2(lh, g1c, 0)
             hi = up2(hl, g0c, 0) + up2(hh, g1c, 0)
             lo = jnp.roll(lo, rc, axis=-1)
@@ -608,53 +344,36 @@ class Transform2d:
         """Lowpass-only q-shift synthesis: [..., 4, h, w] tree lowpasses
         (all highpasses zero, e.g. a delta pyramid above the modified level)
         -> [..., 4, 2h, 2w].  1/4 the work of synthesis_qshift."""
-        lead = ll4.shape[:-3]
-        h, w = ll4.shape[-2:]
-        mode = self._syn_kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_synthesis import dtcwt_qshift_synthesis_ll
-            return dtcwt_qshift_synthesis_ll(
-                ll4.reshape(-1, 4, h, w), interpret=mode, fast=self.fast
-            ).reshape(*lead, 4, 2 * h, 2 * w)
         outs = []
         for ci, (rt, ct) in enumerate(_TREES):
-            g0r = C.QSHIFT_G0A if rt == 0 else C.QSHIFT_G0B
-            g0c = C.QSHIFT_G0A if ct == 0 else C.QSHIFT_G0B
-            rr = C.QSHIFT_ROLL_A if rt == 0 else C.QSHIFT_ROLL_B
-            rc = C.QSHIFT_ROLL_A if ct == 0 else C.QSHIFT_ROLL_B
+            g0r, _, g0c, _, rr, rc = _qshift_synth(rt, ct)
             lo = jnp.roll(up2(ll4[..., ci, :, :], g0c, 0), rc, axis=-1)
             outs.append(jnp.roll(_along_rows(up2, lo, g0r, 0), rr, axis=-2))
         return jnp.stack(outs, axis=-3)
 
+    def synthesis_legall(self, planes16):
+        """[..., 16, h, w] raw planes -> [..., 2h, 2w]: the LeGall level-1
+        synthesis, averaged over the 4 trees (before cropping)."""
+        ll, subs = self._unpack_planes(planes16)
+        out = 0.0
+        for rt, ct in _TREES:
+            lh, hl, hh = subs[(rt, ct)]
+            out = out + _synthesis2d(
+                ll[(rt, ct)], lh, hl, hh, C.LEGALL_G0, C.LEGALL_G1,
+                rt, ct, C.LEGALL_ROLL, C.LEGALL_ROLL,
+            )
+        return out * 0.25
+
     def synthesis_legall_hp(self, subs12):
         """Highpass-only LeGall level-1 synthesis: [..., 12, h, w] planes
         [lh*4, hl*4, hh*4] with an implicit ZERO lowpass -> [..., 2h, 2w]
-        (the codec decode's 1-level inverse).  Falls back to inverse_raw
-        with explicit zero ll planes off the kernel path."""
-        lead = subs12.shape[:-3]
-        h, w = subs12.shape[-2:]
-        mode = self._syn_kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis_hp
-
-            return dtcwt_legall_synthesis_hp(
-                subs12.reshape(-1, 12, h, w), interpret=mode, fast=self.fast
-            ).reshape(*lead, 2 * h, 2 * w)
-        zero_ll = jnp.zeros((*lead, 4, h, w), subs12.dtype)
-        return self.inverse_raw(
-            [jnp.concatenate([zero_ll, subs12], axis=-3)], sizes=None)
+        (the codec decode's 1-level inverse)."""
+        zero_ll = jnp.zeros((*subs12.shape[:-3], 4, *subs12.shape[-2:]), subs12.dtype)
+        return self.synthesis_legall(jnp.concatenate([zero_ll, subs12], axis=-3))
 
     def synthesis_legall_ll(self, ll4):
         """Lowpass-only LeGall level-1 synthesis: [..., 4, h, w] tree
         lowpasses -> [..., 2h, 2w] (4-tree average)."""
-        lead = ll4.shape[:-3]
-        h, w = ll4.shape[-2:]
-        mode = self._syn_kernel_mode(h, w)
-        if mode is not None:
-            from ..kernels.dtcwt_synthesis import dtcwt_legall_synthesis_ll
-            return dtcwt_legall_synthesis_ll(
-                ll4.reshape(-1, 4, h, w), interpret=mode, fast=self.fast
-            ).reshape(*lead, 2 * h, 2 * w)
         out = 0.0
         for ci, (rt, ct) in enumerate(_TREES):
             li = ll4[..., ci, :, :]

@@ -1,7 +1,7 @@
-"""Structure-of-arrays block layout: the TPU-fast path for tiny-block math.
+"""Structure-of-arrays block layout for tiny-block math.
 
-AoS layout ([B, N, 4, 4]) puts 4-wide dimensions on the vector lanes — 3% of
-an 8x128 VPU register used.  SoA keeps the *block index* N minor:
+AoS layout ([B, N, 4, 4]) puts 4-wide dimensions innermost.  SoA keeps the
+*block index* N minor:
 
     image [B, H, W] -> [B, 16, N]   (16 = flattened 4x4 block, N = #blocks)
 

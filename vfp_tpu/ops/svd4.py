@@ -1,4 +1,4 @@
-"""Batched dominant singular triplet of tiny (4x4) matrices, TPU-style.
+"""Batched dominant singular triplet of tiny (4x4) matrices, batched.
 
 The reference runs ``np.linalg.svd`` on every 4x4 DCT block — ~32k LAPACK
 calls per 1080p frame (reference: src/offmark/embed/dwt_dct_svd_encoder.py:43,
@@ -12,9 +12,9 @@ Two batched methods over G = B^T B, both free of data-dependent control flow:
 
 * ``jacobi`` (default): cyclic Jacobi eigensolver — a fixed number of sweeps
   of 6 Givens rotations.  Quadratically convergent and accurate for *all*
-  spectra including near-tied singular values; pure VPU elementwise work.
+  spectra including near-tied singular values; pure elementwise work.
 * ``power``: power iteration by repeated squaring — m normalized squarings
-  give 2^m power steps as batched 4x4 matmuls (MXU-friendly).  Error decays
+  give 2^m power steps as batched 4x4 matmuls.  Error decays
   like (lambda2/lambda1)^(2^m), so it is extremely accurate except for
   near-tied spectra.
 

@@ -13,17 +13,22 @@ model is a work queue, not collectives (SURVEY.md §2.5):
   cross-host barrier.  (Running one ``vfp_tpu.cli hls-mark --resume`` per
   host works too: per-segment outputs are idempotent.)
 
-Workers run on CPU by default (JAX_PLATFORMS=cpu) so a farm can saturate
-host decode/encode while the main process owns the TPU; pass
-``worker_platform`` to change that.
+Workers run on the parent's JAX platform.  On a GPU, worker *i* sees
+exactly one card (``CUDA_VISIBLE_DEVICES``), there are never more workers
+than cards, and the parent must not touch the GPU until the workers are done:
+a JAX process reserves most of a card's memory when it first uses it, so a
+second process on the same card fails for want of memory.
 """
 
 from __future__ import annotations
 
 import multiprocessing
 import os
+import subprocess
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
+
+_GPU_PLATFORMS = ("cuda", "gpu")
 
 
 def _slice(n_items: int, n_workers: int, rank: int):
@@ -31,16 +36,56 @@ def _slice(n_items: int, n_workers: int, rank: int):
     return rank * per, min((rank + 1) * per, n_items)
 
 
-def _worker(args):
-    (segments, marked_dir, copies, key, batch_size, quality, out_ext,
-     first_number, platform) = args
-    os.environ.setdefault("JAX_PLATFORMS", platform)
+def visible_cards() -> list[str]:
+    """CUDA device ids this process may use, found without initializing a
+    JAX backend: ``CUDA_VISIBLE_DEVICES`` if set, else ``nvidia-smi``'s list
+    (empty when there is no driver)."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [c.strip() for c in env.split(",") if c.strip()]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def parent_platform() -> str:
+    """The JAX platform this process is configured for, read without
+    initializing a backend: the first entry of ``jax_platforms`` if set,
+    else 'cuda' when a card is visible (JAX's own default), else 'cpu'."""
     import jax
 
-    try:
-        jax.config.update("jax_platforms", platform)
-    except Exception:
-        pass
+    configured = (jax.config.jax_platforms or "").split(",")[0].strip()
+    if configured:
+        return configured
+    return "cuda" if visible_cards() else "cpu"
+
+
+def worker_envs(workers: int, platform: str, cards: list[str]) -> list[dict]:
+    """Per-rank environment of the farm's workers: the parent's platform and,
+    on a GPU, one card each."""
+    if platform not in _GPU_PLATFORMS:
+        return [{"JAX_PLATFORMS": platform} for _ in range(workers)]
+    if workers > len(cards):
+        raise ValueError(
+            f"{workers} workers but {len(cards)} visible GPU(s): a farm runs "
+            "one worker per card")
+    return [{"JAX_PLATFORMS": platform, "CUDA_VISIBLE_DEVICES": cards[i]}
+            for i in range(workers)]
+
+
+def _worker(args):
+    (segments, marked_dir, copies, key, batch_size, quality, out_ext,
+     first_number, env) = args
+    # before any backend use: jax may already be imported (the package
+    # imports it), so the platform goes through jax.config as well
+    os.environ.update(env)
+    import jax
+
+    jax.config.update("jax_platforms", env["JAX_PLATFORMS"])
     from ..fingerprint.marker import mark_segments
 
     marked, payloads, copies_info = mark_segments(
@@ -63,16 +108,19 @@ def mark_segments_parallel(
     workers: int = 2,
     batch_size: int = 16,
     quality: int = 95,
-    out_ext: str = ".avi",
-    worker_platform: str = "cpu",
+    out_ext: str | None = None,
 ):
-    """Fan the segment x copies work queue over worker processes.
+    """Fan the segment x copies work queue over worker processes, one
+    process per rank (and, on a GPU, one card per process).
 
     Returns (marked, segment_payloads, segment_copies) with the same shapes
     as fingerprint.marker.mark_segments.
     """
     from ..fingerprint.marker import MarkedSegment
 
+    platform = parent_platform()
+    envs = worker_envs(workers, platform,
+                       visible_cards() if platform in _GPU_PLATFORMS else [])
     segments = [str(s) for s in segments]
     marked_dir = Path(marked_dir)
     marked_dir.mkdir(parents=True, exist_ok=True)
@@ -82,17 +130,24 @@ def mark_segments_parallel(
         if lo >= hi:
             continue
         tasks.append((segments[lo:hi], str(marked_dir), copies, key, batch_size,
-                      quality, out_ext, lo, worker_platform))
+                      quality, out_ext, lo, envs[rank]))
     marked: list = []
     payloads: dict = {}
     seg_entries: dict = {}
-    # spawn: forking a JAX-initialized parent deadlocks
+    # spawn: forking a JAX-initialized parent deadlocks.  One single-process
+    # pool per rank, so no process ever runs two ranks (and two cards' envs)
     ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=len(tasks), mp_context=ctx) as pool:
-        for m_list, p, entries in pool.map(_worker, tasks):
+    pools = [ProcessPoolExecutor(max_workers=1, mp_context=ctx) for _ in tasks]
+    try:
+        futures = [pool.submit(_worker, t) for pool, t in zip(pools, tasks)]
+        for fut in futures:
+            m_list, p, entries = fut.result()
             marked.extend(MarkedSegment(*m) for m in m_list)
             payloads.update(p)
             seg_entries.update(entries)
+    finally:
+        for pool in pools:
+            pool.shutdown()
     marked.sort(key=lambda m: (m.segment_number, m.copy_index))
     segment_copies = {
         "segments": seg_entries,
@@ -149,7 +204,7 @@ def mark_segments_distributed(
     key: int = 0,
     batch_size: int = 16,
     quality: int = 95,
-    out_ext: str = ".avi",
+    out_ext: str | None = None,
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,

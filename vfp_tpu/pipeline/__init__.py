@@ -1,4 +1,4 @@
-"""Host pipeline drivers: overlap video I/O with batched TPU compute."""
+"""Host pipeline drivers: overlap video I/O with batched device compute."""
 
 from .embedder import Embedder, FrameMarker, MultiMarker, use_lowlink  # noqa: F401
 from .extractor import (  # noqa: F401

@@ -1,4 +1,4 @@
-"""Embedding driver: reader -> batched TPU mark -> writer, stages overlapped.
+"""Embedding driver: reader -> batched device mark -> writer, stages overlapped.
 
 The reference processes one frame per loop iteration with everything serial
 (reference: src/offmark/video/embedder.py:18-31).  Here frames move in
@@ -24,33 +24,27 @@ _SENTINEL = None
 
 
 def use_lowlink(codec) -> bool:
-    """LL-domain link transport policy (pipeline/lowlink.py): on by default
-    when the link is the bottleneck (TPU behind the relay/PCIe); VFP_LOWLINK
-    =0/1 forces it off/on (the forced-on path is used by CPU parity tests).
-    The host wire (VFP_LL_WIRE=host) short-circuits to True BEFORE the
-    backend probe: it exists to keep workflows running when the device is
-    unreachable, so it must never block on jax.default_backend()."""
+    """LL-domain link transport policy (pipeline/lowlink.py): off unless the
+    user asks for it with VFP_LOWLINK=1 or a VFP_LL_WIRE wire format, and
+    only for codecs it supports.  VFP_LOWLINK=0 forces it off."""
     import os
 
-    from .lowlink import default_wire, lowlink_ok
+    from .lowlink import lowlink_ok
 
-    flag = os.environ.get("VFP_LOWLINK", "auto")
-    if flag == "0":
+    flag = os.environ.get("VFP_LOWLINK")
+    if flag == "0" or not lowlink_ok(codec):
         return False
-    if not lowlink_ok(codec):
-        return False
-    if flag == "1" or default_wire() == "host":
-        return True
-    return jax.default_backend() == "tpu"
+    return flag == "1" or bool(os.environ.get("VFP_LL_WIRE"))
 
 
 class FrameMarker:
     """Binds a codec + spread watermark into a jitted uint8 batch transform.
 
     Pads partial batches to the compiled batch size so every video length
-    reuses one executable per (B, H, W) shape.  On TPU the flagship codec
-    routes through the LL-domain low-link transport (pipeline/lowlink.py):
-    ~6x less up-traffic and ~12x less down-traffic on the host<->chip link.
+    reuses one executable per (B, H, W) shape.  With the low-link transport
+    turned on (``use_lowlink``), the flagship codec routes through
+    pipeline/lowlink.py: ~6x less up-traffic and ~12x less down-traffic on
+    the host<->device link.
     """
 
     def __init__(self, codec, wm: np.ndarray, batch_size: int = 16):
@@ -82,8 +76,9 @@ class FrameMarker:
 class MultiMarker:
     """Marks every watermark variant in one vmapped call per frame batch —
     the HLS copies axis amortizes kernel launches (and maps onto the
-    'variant' mesh axis on multi-chip, parallel/sharded.py).  On TPU the
-    flagship codec routes through the low-link LL-domain transport."""
+    'variant' mesh axis on multi-chip, parallel/sharded.py).  With the
+    low-link transport turned on (``use_lowlink``) the flagship codec routes
+    through it."""
 
     def __init__(self, codec, wms: np.ndarray, batch_size: int = 16, packer=None):
         self.codec = codec

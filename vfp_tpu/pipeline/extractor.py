@@ -1,4 +1,4 @@
-"""Extraction driver: reader -> batched TPU decode -> payload aggregation.
+"""Extraction driver: reader -> batched device decode -> payload aggregation.
 
 The reference decodes frame-by-frame and only logs each result
 (reference: src/offmark/video/extractor.py:18-34); the workflow scripts then
@@ -28,7 +28,8 @@ _SENTINEL = None
 class FrameExtractor:
     """Binds a codec + degenerator into a jitted uint8 batch -> payload map.
 
-    On TPU the flagship codec routes through the LL-domain low-link transport
+    With the low-link transport turned on (``use_lowlink``), the flagship
+    codec routes through the LL-domain transport
     (pipeline/lowlink.py): decode needs only the LL band, so ~6x fewer bytes
     go up and only payload-sized results come down."""
 

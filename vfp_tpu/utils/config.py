@@ -18,16 +18,12 @@ class CodecConfig:
     # DwtDctSvd
     scales: tuple = (0.0, 15.0, 0.0)
     blk: int = 4
-    backend: str = "auto"  # pallas | xla | auto
     # DctQim
     alpha_dct: float = 20.0
     # Dtcwt
     alpha_key: float = 10.0
     alpha_img: float = 1.5
     step: float = 5.0
-    # single-bf16-pass DT-CWT kernel matmuls (3-6x fewer MXU passes;
-    # decision-equivalent for these thresholded-correlation codecs)
-    fast_dots: bool = False
 
 
 @dataclass
@@ -80,13 +76,11 @@ class VfpConfig:
         c = self.codec
         name = name.lower()
         if name in ("dwtdctsvd", "dwt_dct_svd", "svd"):
-            return DwtDctSvd(scales=tuple(c.scales), blk=c.blk, backend=c.backend)
+            return DwtDctSvd(scales=tuple(c.scales), blk=c.blk)
         if name in ("dct", "dctqim", "dct_qim"):
-            return DctQim(alpha=c.alpha_dct, fast_dots=c.fast_dots)
+            return DctQim(alpha=c.alpha_dct)
         if name in ("dtcwtkey", "dtcwt_key"):
-            return DtcwtKey(alpha=c.alpha_key, step=c.step,
-                            fast_dots=c.fast_dots)
+            return DtcwtKey(alpha=c.alpha_key, step=c.step)
         if name in ("dtcwtimg", "dtcwt_img"):
-            return DtcwtImg(alpha=c.alpha_img, step=c.step,
-                            fast_dots=c.fast_dots)
+            return DtcwtImg(alpha=c.alpha_img, step=c.step)
         raise ValueError(f"unknown codec: {name}")

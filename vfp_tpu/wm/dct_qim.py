@@ -6,7 +6,7 @@ on DCT coefficient [2][1] with step = alpha * luminance_mask * texture_mask,
 both masks computed per block from the Y channel (DC-based piecewise
 luminance model; energy-classification texture model with edge detection).
 
-TPU redesign: blocks in SoA layout [B, 64, N] (block index on lanes), the
+Batched redesign: blocks in SoA layout [B, 64, N] (block index on lanes), the
 8x8 DCT as one 64x64 Kronecker matmul, both perceptual masks as lane-parallel
 where-chains — the reference's per-block Python double loop (and its
 duplicated mask code in the decoder) becomes one jitted program.
@@ -84,44 +84,16 @@ def texture_mask(y_dct_soa: jnp.ndarray) -> jnp.ndarray:
 @dataclass(frozen=True)
 class DctQim:
     """Functional perceptual DCT-QIM codec (reference pairing: Shuffler /
-    GrayScale generators, reference tests/test.py:59).
-
-    backend: 'pallas' = single-launch fused kernels, 'xla' = jnp ops,
-    'auto' = pallas on TPU for supported shapes.
-    """
+    GrayScale generators, reference tests/test.py:59)."""
 
     alpha: float = 20.0
     blk: int = 8
     # DCT coefficient carrying the bit (reference: dct_encoder.py:33-37)
     coeff_row: int = 2
     coeff_col: int = 1
-    backend: str = "auto"
-    # single-bf16-pass kernel matmuls (kernels/fused_dct_qim._dot) — fewer
-    # MXU passes; decision-equivalent (masks recomputed identically on both
-    # sides, coefficient noise << step/2 margin; TestFastDctQim pins it).
-    # Chip A/B (tools/bench_fastdots.py, v5e @1080p): 3686->3715 mark /
-    # 3307->3312 extract fps — within run noise, so the exact (HIGHEST
-    # precision) default stays; the codec is launch/VPU-bound, not MXU-bound.
-    fast_dots: bool = False
 
     def wm_capacity(self, frame_shape):
         return (1, frame_shape[0] * frame_shape[1] // 64)
-
-    def _use_fused(self, frame_shape) -> bool:
-        import jax
-
-        from ..kernels.fused_dct_qim import padded_width8
-
-        if self.backend == "xla":
-            return False
-        if self.backend == "auto" and jax.default_backend() != "tpu":
-            return False
-        h, w = frame_shape[1], frame_shape[2]
-        return (
-            (self.coeff_row, self.coeff_col) == (2, 1)
-            and h % 8 == 0 and w % 8 == 0
-            and padded_width8(w) is not None
-        )
 
     def _masks(self, y: jnp.ndarray) -> jnp.ndarray:
         """[B, H, W] Y channel -> combined step mask [B, N]."""
@@ -173,13 +145,6 @@ class DctQim:
         b, h, w, _ = frames.shape
         nbh, nbw = _block_grid8(h, w)
         h8, w8 = nbh * 8, nbw * 8
-        if self._use_fused(frames.shape):
-            from ..kernels.fused_dct_qim import fused_dct_qim_mark
-
-            wm2d = wm.reshape(-1)[: nbh * nbw].reshape(nbh, nbw)
-            out = fused_dct_qim_mark(jnp.moveaxis(frames, -1, 1), wm2d, self.alpha,
-                                     fast=self.fast_dots)
-            return jnp.moveaxis(out, 1, -1)
         yuv = bgr_to_yuv(frames.astype(jnp.float32))
         u = yuv[..., 1]
         u_new = self._embed_channel(yuv[..., 0], u, wm)
@@ -188,13 +153,4 @@ class DctQim:
         return jnp.round(jnp.clip(marked, 0.0, 255.0)).astype(jnp.uint8)
 
     def extract_frames(self, frames: jnp.ndarray) -> jnp.ndarray:
-        if self._use_fused(frames.shape):
-            from ..kernels.fused_dct_qim import fused_dct_qim_extract
-
-            b, h, w, _ = frames.shape
-            nbh, nbw = _block_grid8(h, w)
-            bits = fused_dct_qim_extract(jnp.moveaxis(frames, -1, 1), self.alpha,
-                                         fast=self.fast_dots)
-            bits = bits.reshape(b, nbh * nbw)
-            return jnp.pad(bits, ((0, 0), (0, h * w // 64 - nbh * nbw)))
         return self.decode_yuv(bgr_to_yuv(frames.astype(jnp.float32)))

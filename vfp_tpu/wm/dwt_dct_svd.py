@@ -9,7 +9,7 @@ src/offmark/embed/dwt_dct_svd_encoder.py:19-45).  Extraction reads
 ``bit = (s0 % scale) > scale / 2`` (reference:
 src/offmark/extract/dwt_dct_svd_decoder.py:12-37).
 
-TPU-first redesign: the frame loop and the ~32k-per-frame block loop become a
+Batched redesign: the frame loop and the ~32k-per-frame block loop become a
 single jitted program over ``[B, H, W, C]`` — Haar as strided butterflies,
 the per-block SVD as a batched dominant-triplet power iteration, and the s0
 rewrite as a rank-1 update.  No Python control flow depends on data;
@@ -43,7 +43,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence
 
-import jax
 import jax.numpy as jnp
 
 from ..ops.color import bgr_to_yuv, yuv_to_bgr
@@ -66,42 +65,10 @@ def block_grid(frame_shape, blk: int = 4):
 
 @dataclass(frozen=True)
 class DwtDctSvd:
-    """Functional codec; instances are static (hashable) so methods jit cleanly.
-
-    backend: 'pallas' = fused TPU kernel for the block stage (one HBM
-    round-trip), 'xla' = pure jnp ops, 'auto' = pallas on TPU else xla.
-    """
+    """Functional codec; instances are static (hashable) so methods jit cleanly."""
 
     scales: Sequence[float] = (0.0, 15.0, 0.0)
     blk: int = 4
-    backend: str = "auto"
-    # fused-kernel integer-domain input/epilogue (kernels/fused_embed.py):
-    # replaces the u8<->i32<->f32 cast chain (47% of the kernel per the
-    # per-op profile) with fixed-point i32 MACs.  Decode decisions are
-    # bit-identical; marked pixels stay in the documented borderline-.5
-    # class.  Chip A/B (tools/bench_intpath.py, v5e @1080p): f32 15494 mark /
-    # 20204 extract vs int 15113 / 20552 fps — a wash (the cast chain fuses
-    # into the same VPU passes either way), so the simpler f32 path stays.
-    int_path: bool = False
-
-    def _use_pallas(self) -> bool:
-        import jax
-
-        if self.backend == "auto":
-            return jax.default_backend() == "tpu"
-        return self.backend == "pallas"
-
-    def _fused_ok(self, frame_shape) -> bool:
-        """Whether the single-launch mega-kernel supports this shape.
-
-        Any W % 4 == 0 up to 8K qualifies: widths without a chunkable block
-        count are zero-padded inside the kernel wrapper (exact; see
-        kernels/fused_embed.padded_width).
-        """
-        from ..kernels.fused_embed import padded_width
-
-        h, w = frame_shape[1], frame_shape[2]
-        return self.blk == 4 and w % 4 == 0 and padded_width(w) is not None
 
     # -- reference-compatible capacity -------------------------------------
     def wm_capacity(self, frame_shape):
@@ -116,16 +83,11 @@ class DwtDctSvd:
         region = ll[:, : nbh * self.blk, : nbw * self.blk]
         m = image_to_soa(region, self.blk)  # [B, 16, N] spatial
         bits = wm_bits[: nbh * nbw].astype(jnp.float32)
-        if self._use_pallas():
-            from ..kernels import qim_embed_soa
-
-            m = qim_embed_soa(m, bits, scale)
-        else:
-            # no DCT: orthogonal similarity preserves the triplet (see module
-            # docstring) — the rank-1 update applies to the raw LL blocks
-            s0, u, v = top_triplet_soa(m)
-            s_new = (jnp.floor(s0 / scale) + 0.25 + 0.5 * bits[None, :]) * scale
-            m = rank1_update_soa(m, s_new - s0, u, v)
+        # no DCT: orthogonal similarity preserves the triplet (see module
+        # docstring) — the rank-1 update applies to the raw LL blocks
+        s0, u, v = top_triplet_soa(m)
+        s_new = (jnp.floor(s0 / scale) + 0.25 + 0.5 * bits[None, :]) * scale
+        m = rank1_update_soa(m, s_new - s0, u, v)
         region_new = soa_to_image(m, nbh * self.blk, nbw * self.blk, self.blk)
         if (nbh * self.blk, nbw * self.blk) == ll.shape[1:]:
             ll = region_new
@@ -142,10 +104,6 @@ class DwtDctSvd:
         (nbh, nbw), _ = block_grid((h, w), self.blk)
         ll, *_ = haar_dwt2(chan[:, :h4, :w4])
         m = image_to_soa(ll[:, : nbh * self.blk, : nbw * self.blk], self.blk)
-        if self._use_pallas():
-            from ..kernels import qim_decode_soa
-
-            return qim_decode_soa(m, scale)
         s0, _, _ = top_triplet_soa(m)  # s0(dct(B)) == s0(B): DCT omitted
         return (jnp.mod(s0, scale) > scale * 0.5).astype(jnp.float32)  # [B, N]
 
@@ -193,16 +151,11 @@ class DwtDctSvd:
 
     def _region_triplet(self, ll: jnp.ndarray):
         """(m [B,16,N], s0, u, v) of the block-aligned LL region — the shared
-        front half of every delta helper (one fused launch on TPU)."""
+        front half of every delta helper."""
         b, hc, wc = ll.shape
         nbh, nbw = hc // self.blk, wc // self.blk
         m = image_to_soa(ll[:, : nbh * self.blk, : nbw * self.blk], self.blk)
-        if self._use_pallas():
-            from ..kernels import qim_triplet_soa
-
-            s0, u, v = qim_triplet_soa(m)
-        else:
-            s0, u, v = top_triplet_soa(m)  # DCT omitted (module docstring)
+        s0, u, v = top_triplet_soa(m)  # DCT omitted (module docstring)
         return m, s0, u, v
 
     def _delta_image(self, ds, u, v, ll_shape):
@@ -268,20 +221,8 @@ class DwtDctSvd:
             return jnp.round(jnp.clip(marked, 0.0, 255.0)).astype(jnp.uint8)
 
         c = active[0]
-        if self._use_pallas() and self._fused_ok(frames.shape):
-            # single-launch mega-kernel (launch latency dominates on-chip)
-            from ..kernels.fused_embed import fused_mark_planar
-
-            (nbh, nbw), _ = block_grid(frames.shape[1:3], self.blk)
-            wm2d = wm.reshape(-1)[: nbh * nbw].reshape(nbh, nbw)
-            planes = jnp.moveaxis(frames, -1, 1)
-            out = fused_mark_planar(planes, wm2d, float(self.scales[c]), c,
-                                    int_path=self.int_path)
-            return jnp.moveaxis(out, 1, -1)
         b, h, w, _ = frames.shape
         h4, w4 = h // 4 * 4, w // 4 * 4
-        # Planar layout: channels on a leading axis so W rides the vector
-        # lanes (the interleaved [..., 3] layout wastes 125/128 lanes).
         planes = jnp.moveaxis(frames, -1, 1).astype(jnp.float32)  # [B, 3, H, W]
         bp, gp, rp = planes[:, 0], planes[:, 1], planes[:, 2]
 
@@ -319,23 +260,9 @@ class DwtDctSvd:
         """
         b, h, w, _ = frames.shape
         (nbh, nbw), capacity = block_grid((h, w), self.blk)
-        if self._use_pallas() and self._fused_ok(frames.shape):
-            from ..kernels.fused_embed import fused_extract_planar
-
-            bits2d = fused_extract_planar(
-                jnp.moveaxis(frames, -1, 1), float(self.scales[1]), 1,
-                int_path=self.int_path,
-            )
-            bits = bits2d.reshape(b, nbh * nbw)
-            return jnp.pad(bits, ((0, 0), (0, capacity - nbh * nbw)))
         ll = self._ll_from_frames(frames.astype(jnp.float32), 1)
         m = image_to_soa(ll[:, : nbh * self.blk, : nbw * self.blk], self.blk)
         scale = float(self.scales[1])
-        if self._use_pallas():
-            from ..kernels import qim_decode_soa
-
-            bits = qim_decode_soa(m, scale)
-        else:
-            s0, _, _ = top_triplet_soa(m)  # DCT omitted (module docstring)
-            bits = (jnp.mod(s0, scale) > scale * 0.5).astype(jnp.float32)
+        s0, _, _ = top_triplet_soa(m)  # DCT omitted (module docstring)
+        bits = (jnp.mod(s0, scale) > scale * 0.5).astype(jnp.float32)
         return jnp.pad(bits, ((0, 0), (0, capacity - nbh * nbw)))

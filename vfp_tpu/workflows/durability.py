@@ -59,7 +59,7 @@ def _corr_batch_fn(codec, refs_shape):
     keyed reference (the 'fast' rule of reference:
     src/offmark/degenerator/de_corr_shuffler.py:14-30, batched over keys).
     Correlations are computed on-device so only a [B, K] scalar table
-    crosses the host<->chip link."""
+    crosses the host<->device link."""
     import jax
     import jax.numpy as jnp
 
@@ -73,7 +73,9 @@ def _corr_batch_fn(codec, refs_shape):
         r = (refs - refs.mean(axis=(-2, -1), keepdims=True)) / refs.std(
             axis=(-2, -1), keepdims=True
         )
-        return jnp.einsum("bhw,khw->bk", p, r) / n
+        # HIGHEST: a GPU would otherwise run this f32 product in TF32
+        return jnp.einsum("bhw,khw->bk", p, r,
+                          precision=jax.lax.Precision.HIGHEST) / n
 
     return fn
 
